@@ -5,9 +5,11 @@
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
-  1. build the masked pixel-LSTM kernels ``csrc/mlstm_fwd.cu`` (B1) and
-     ``csrc/mlstm_bwd.cu`` (B2) with one nvcc call, printing registers and
-     spills;
+  1. build all kernels with one nvcc call, printing registers and spills:
+     the masked pixel-LSTM ``csrc/mlstm_fwd.cu`` (B1, and B3 its
+     word-attention instance) and ``csrc/mlstm_bwd.cu`` (B2, B4), and the
+     RecurAttn recurrence ``csrc/recur_attn_fwd.cu`` (B5) and
+     ``csrc/recur_attn_bwd.cu`` (B6);
   2. turn TF32 off for cuDNN convolutions and cuBLAS matmuls;
   3. hold B1 against ``mlstm_plain`` on the card at the RMI, FG and BG
      shapes (max-abs error on h <= 1e-4) and time both;
@@ -32,8 +34,22 @@ and prints no result):
      finite, the text leaves move and ResNet does not, the snapshot is
      written and resumed; step wall times, B2's share of a step
      (``torch.profiler``) and peak device memory;
-  9. print the kernels line, the card's name and power limit, and last
-     ``{"ok": true, "device": {...}}``.
+  9. hold B3/B4 against ``mlstm_attn_plain``/``mlstm_attn_bwd_plain`` at
+     the RMI shape and a ragged one (acc within 1e-4; each gradient,
+     d_attn included, within 1e-4 of its largest magnitude; B4 bitwise
+     repeatable), and B5/B6 against ``recur_attn_plain``/
+     ``recur_attn_bwd_plain`` at the RecurAttn shape and a ragged mask with
+     a 0 inside a sequence, the same way; time each against its plain
+     version (this phase runs right after 4);
+ 10. for each of the word-attention (``use_attn``) and RecurAttn fusions:
+     the small-scene session sequence and three small-config train steps on
+     CUDA against the CPU, as in 5 and 6; then at full width a session
+     (``color`` command and forced FG pass, B3 or B5 launches counted) and
+     5 ``train_matching`` steps on the synthetic corpus, each launching
+     B3+B4 or B5+B6, with step walls, peak device memory and the last step
+     under ``torch.profiler``;
+ 11. print the kernels line (six kernels, launches per path), the card's
+     name and power limit, and last ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -66,6 +82,19 @@ SHAPES = [
 NO_LIBRARY = ("no single PyTorch call computes the masked TF-cell "
               "recurrence (gate order i,j,f,o, forget bias 1, per-step "
               "freeze of c and h)")
+VARIANT_STEPS = 5   # full-width train steps of each variant fusion; the
+                    # last one runs under torch.profiler
+# name, N, P, H, T, valid flags per batch row
+ATTN_SHAPES = [
+    ("rmi_attn", 1, 9216, 500, 15, [[1] * 7 + [0] * 8]),
+    ("ragged_attn", 2, 1001, 500, 15, [[1] * 5 + [0] * 10, [0] * 15]),
+]
+RECUR_SHAPES = [
+    ("recur", 1, 9216, 256, 15, [[1] * 7 + [0] * 8]),
+    ("ragged_recur", 2, 1001, 256, 15,
+     [[1, 1, 0, 1, 1, 1, 1] + [0] * 8, [0, 0, 1, 1, 1] + [0] * 10]),
+]
+VARIANTS = {"attn": {"use_attn": True}, "recur": {"fusion_type": "RecurAttn"}}
 
 # (46-category id, name, box as fractions (y1, x1, y2, x2) of the canvas)
 INSTANCES = [
@@ -166,6 +195,88 @@ def bwd_bound(n, p, hid, t, n_valid):
     return bound(flops, nbytes)
 
 
+def kernel_counters():
+    """{kernel name: its wrapper}; each wrapper counts its own launches."""
+    from sketchyscenecolorization_torch.ops import mlstm, recur_attn
+    return {"mlstm_fwd": mlstm.mlstm_cuda, "mlstm_bwd": mlstm.mlstm_bwd_cuda,
+            "mlstm_attn_fwd": mlstm.mlstm_attn_cuda,
+            "mlstm_attn_bwd": mlstm.mlstm_attn_bwd_cuda,
+            "recur_attn_fwd": recur_attn.recur_attn_cuda,
+            "recur_attn_bwd": recur_attn.recur_attn_bwd_cuda}
+
+
+def reset_counts():
+    for fn in kernel_counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in kernel_counters().items()}
+
+
+# forward and backward kernel of each fusion ("" is the default)
+FUSION_KERNELS = {"": ("mlstm_fwd", "mlstm_bwd"),
+                  "attn": ("mlstm_attn_fwd", "mlstm_attn_bwd"),
+                  "recur": ("recur_attn_fwd", "recur_attn_bwd")}
+# device kernels (profiler names) of each variant's forward and backward
+SHARED_BWD = ("rows_product", "column_sums", "sum_rows", "transpose_kernel")
+PROFILE_NAMES = {
+    "attn": (("mlstm_fwd_kernel<false, true>",),
+             ("mlstm_bwd_sweep_kernel<true>", "attn_sum",
+              "mlstm_fwd_kernel<true, false>") + SHARED_BWD),
+    "recur": (("recur_attn_fwd_kernel<false>",),
+              ("recur_attn_sweep", "recur_attn_fwd_kernel<true>")
+              + SHARED_BWD)}
+
+
+def _kept(rows):
+    return [sum(1 for v in row if v) for row in rows]
+
+
+def attn_fwd_bound(n, p, hid, t, rows):
+    """B3: B1's products (per batch row one [P,H]x[H,4H] product per kept
+    step after the first); inputs (attn too) read once, acc written once."""
+    flops = sum(2 * p * hid * 4 * hid * max(k - 1, 0) for k in _kept(rows))
+    nbytes = 4 * (n * p * 4 * hid + n * t * 4 * hid + hid * 4 * hid + 2 * n * t
+                  + n * p * hid)
+    return bound(flops, nbytes)
+
+
+def attn_bwd_bound(n, p, hid, t, rows):
+    """B4: B2's three products per kept step after the first, plus d_attn's
+    P*H multiply-adds at every kept step; inputs (pixel, step, W_h, valid,
+    attn, g) read once, the four gradients written once."""
+    flops = sum(2 * p * hid * 4 * hid * 3 * max(k - 1, 0) + 2 * p * hid * k
+                for k in _kept(rows))
+    nbytes = 4 * (2 * n * p * 4 * hid + 2 * n * t * 4 * hid
+                  + 2 * hid * 4 * hid + 3 * n * t + n * p * hid)
+    return bound(flops, nbytes)
+
+
+def recur_fwd_bound(n, p, hid, t, rows):
+    """B5: per pixel and kept step (every one: h starts at h0, not 0)
+    h@Wp (H*w), the logits and attn@lang (2*T*w) and [x,h]@Wm ((w+H)*4H),
+    w = H; inputs read once, h written once."""
+    per = hid * hid + 2 * t * hid + 2 * hid * 4 * hid
+    flops = 2 * p * per * sum(_kept(rows))
+    nbytes = 4 * (2 * n * p * hid + n * t * hid + 9 * hid * hid + 5 * hid
+                  + n * t)
+    return bound(flops, nbytes)
+
+
+def recur_bwd_bound(n, p, hid, t, rows):
+    """B6: per pixel and kept step the recomputed forward (B5's products),
+    [dx, dh] = dgates@Wm^T, dx.lang, dlogits@lang, dhp@Wp^T, and the
+    gradient products [x,h]^T dgates, h^T dhp and attn^T dx + dlogits^T
+    h_proj: 3x B5; inputs (g too) read once, the six gradients written
+    once."""
+    per = 3 * (hid * hid + 2 * t * hid + 2 * hid * 4 * hid)
+    flops = 2 * p * per * sum(_kept(rows))
+    nbytes = 4 * (3 * n * p * hid + 2 * n * t * hid
+                  + 2 * (9 * hid * hid + 5 * hid) + n * t)
+    return bound(flops, nbytes)
+
+
 def shape_inputs(n, p, hid, t, n_valid, front):
     import torch
     g = torch.Generator(device="cuda").manual_seed(p)
@@ -254,14 +365,110 @@ def check_bwd_kernel(mlstm):
     return results
 
 
-def small_config(tmp: str, size: int = 64):
+def variant_inputs(kind, n, p, hid, t, rows):
+    """Seeded inputs of B3/B4 (``kind`` "attn") or B5/B6 ("recur") on the
+    card, and dL/d(output)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(p + hid)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, device="cuda", generator=g) * scale
+
+    valid = torch.tensor(rows, dtype=torch.int32, device="cuda")
+    if kind == "attn":
+        args = (rnd(n, p, 4 * hid, scale=0.3), rnd(n, t, 4 * hid, scale=0.3),
+                rnd(hid, 4 * hid, scale=0.05), valid,
+                torch.softmax(rnd(n, t), -1))
+    else:
+        args = (rnd(n, p, hid, scale=0.3), rnd(n, t, hid, scale=0.3),
+                rnd(hid, hid, scale=0.05), rnd(hid, scale=0.1),
+                rnd(2 * hid, 4 * hid, scale=0.05), rnd(4 * hid, scale=0.1),
+                valid)
+    return args, rnd(n, p, hid)
+
+
+def check_variant_kernels(kind):
+    """B3/B4 (``kind`` "attn", ATTN_SHAPES) or B5/B6 ("recur",
+    RECUR_SHAPES) against their plain versions on the card: the forward
+    within TOL, every gradient within BWD_TOL of its largest magnitude, two
+    backward launches bitwise equal; each timed in the order plain, kernel,
+    kernel, plain.  Returns {shape name: (fwd max-abs error, fwd ms, fwd
+    plain ms, bwd max-abs error, bwd max relative error, bwd ms, bwd plain
+    ms)}."""
+    import torch
+    from sketchyscenecolorization_torch.ops import mlstm, recur_attn
+    if kind == "attn":
+        fwd, fwd_plain = mlstm.mlstm_attn_cuda, mlstm.mlstm_attn_plain
+        bwd, bwd_plain = mlstm.mlstm_attn_bwd_cuda, mlstm.mlstm_attn_bwd_plain
+        names = ("d_pixel", "d_step", "d_w_h", "d_attn")
+        shapes, labels = ATTN_SHAPES, ("B3", "B4")
+        bounds = (attn_fwd_bound, attn_bwd_bound)
+    else:
+        fwd, fwd_plain = recur_attn.recur_attn_cuda, recur_attn.recur_attn_plain
+        bwd, bwd_plain = (recur_attn.recur_attn_bwd_cuda,
+                          recur_attn.recur_attn_bwd_plain)
+        names = ("d_h0", "d_lang", "d_wp", "d_bp", "d_wm", "d_bm")
+        shapes, labels = RECUR_SHAPES, ("B5", "B6")
+        bounds = (recur_fwd_bound, recur_bwd_bound)
+    results = {}
+    for name, n, p, hid, t, rows in shapes:
+        args, dout = variant_inputs(kind, n, p, hid, t, rows)
+        got = fwd(*args)
+        torch.cuda.synchronize()
+        err = float((got - fwd_plain(*args)).abs().max())
+        if not (torch.isfinite(got).all() and err <= TOL):
+            raise AssertionError(f"{labels[0]} vs plain at {name}: max-abs "
+                                 f"{err} > {TOL} (or non-finite)")
+        grads, again = bwd(*args, dout), bwd(*args, dout)
+        torch.cuda.synchronize()
+        abs_err = rel_err = 0.0
+        for out, a, b, c in zip(names, grads, again, bwd_plain(*args, dout)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{labels[1]} at {name}: two launches "
+                                     f"differ in {out}")
+            e = float((a - c).abs().max())
+            r = e / max(float(c.abs().max()), 1e-30)
+            if not (torch.isfinite(a).all() and r <= BWD_TOL):
+                raise AssertionError(f"{labels[1]} vs plain at {name}, {out}: "
+                                     f"max-abs {e} is {r} of max|plain| > "
+                                     f"{BWD_TOL} (or non-finite)")
+            abs_err, rel_err = max(abs_err, e), max(rel_err, r)
+            log(f"  {labels[1]} {name} {out}: max_abs_err {e:.3e}, {r:.2e} "
+                f"of max|plain| {float(c.abs().max()):.3e}")
+        del got, grads, again
+        iters = 3 if p > 5000 else 10
+        f_k = lambda: fwd(*args)                  # noqa: E731
+        f_p = lambda: fwd_plain(*args)            # noqa: E731
+        b_k = lambda: bwd(*args, dout)            # noqa: E731
+        b_p = lambda: bwd_plain(*args, dout)      # noqa: E731
+        fp1, fk1, fk2, fp2, bp1, bk1, bk2, bp2 = (
+            cuda_ms(f, iters) for f in (f_p, f_k, f_k, f_p, b_p, b_k, b_k, b_p))
+        res = (err, (fk1 + fk2) / 2, (fp1 + fp2) / 2, abs_err, rel_err,
+               (bk1 + bk2) / 2, (bp1 + bp2) / 2)
+        results[name] = res
+        (fb, fby), (bb, bby) = (f(n, p, hid, t, rows) for f in bounds)
+        log(f"{labels[0]}/{labels[1]} vs plain [{name}: N={n} P={p} H={hid} "
+            f"T={t}, kept steps {_kept(rows)}]: {labels[0]} max_abs_err "
+            f"{err:.3e} (tol {TOL:.0e}), kernel {res[1]:.3f} ms, plain "
+            f"{res[2]:.3f} ms, bound {fb:.3f} ms ({fby}); {labels[1]} "
+            f"bitwise repeatable, max error {rel_err:.2e} of max|plain| (tol "
+            f"{BWD_TOL:.0e}), kernel {res[5]:.3f} ms, plain {res[6]:.3f} ms, "
+            f"bound {bb:.3f} ms ({bby}); order plain, kernel, kernel, plain: "
+            f"{fp1:.3f} {fk1:.3f} {fk2:.3f} {fp2:.3f} / {bp1:.3f} {bk1:.3f} "
+            f"{bk2:.3f} {bp2:.3f}")
+        del args, dout
+        torch.cuda.empty_cache()
+    return results
+
+
+def small_config(tmp: str, size: int = 64, variant: str = ""):
     from sketchyscenecolorization_torch.config import (
         FGGanConfig, FrameworkConfig, MatchingConfig, PipelineConfig)
     return FrameworkConfig(
         matching=MatchingConfig(vf_h=size // 8, vf_w=size // 8, H=size,
                                 W=size, vocab_size=16, w_emb_dim=16,
                                 v_emb_dim=16, m_rnn_size=8, w_rnn_size=16,
-                                max_len=6),
+                                max_len=6, **VARIANTS.get(variant, {})),
         fg_gan=FGGanConfig(image_size=size, vocab_size=16, max_len=6,
                            base_channels=4, noise_dim=8),
         pipeline=PipelineConfig(
@@ -309,15 +516,24 @@ def read_outputs(tmp):
         return f.read(), images
 
 
-def check_against_cpu(build_session):
-    """The CUDA session against the CPU session on a small scene."""
+def check_against_cpu(build_session, variant: str = ""):
+    """The CUDA session against the CPU session on a small scene, with the
+    default fusion or the ``variant`` of VARIANTS; the CUDA run must launch
+    the fusion's forward kernel and the CPU run none."""
     texts = ["the bus is yellow", "the car is red"]
     runs = []
+    fwd_name = FUSION_KERNELS[variant][0]
     for device in ("cuda", "cpu"):
         tmp = tempfile.mkdtemp(prefix=f"smoke_small_{device}_")
         eligible = write_scene(os.path.join(tmp, "examples"), 64)
-        session = build_session(small_config(tmp), seed=0, device=device)
+        session = build_session(small_config(tmp, variant=variant), seed=0,
+                                device=device)
+        reset_counts()
         matched, _ = run_sequence(session, eligible, texts)
+        launched = read_counts()[fwd_name]
+        if (launched < 1) if device == "cuda" else launched:
+            raise AssertionError(f"{fwd_name}: {launched} launches in the "
+                                 f"{device} session")
         runs.append((matched, *read_outputs(tmp)))
     (m_gpu, rec_gpu, img_gpu), (m_cpu, rec_cpu, img_cpu) = runs
     if m_gpu != m_cpu or rec_gpu != rec_cpu or sorted(img_gpu) != sorted(img_cpu):
@@ -333,8 +549,9 @@ def check_against_cpu(build_session):
             raise AssertionError(f"CUDA vs CPU canvas {name}: max diff "
                                  f"{diff.max()}, outside inner masks "
                                  f"{int(diff[inner == 0].max())}")
-    log(f"small scene, CUDA vs CPU session: matched {m_gpu}, records "
-        f"byte-equal, {len(img_cpu)} canvases, max diff {worst} LSB")
+    log(f"small scene{' (' + variant + ' fusion)' if variant else ''}, CUDA "
+        f"vs CPU session: matched {m_gpu}, records byte-equal, "
+        f"{len(img_cpu)} canvases, max diff {worst} LSB")
 
 
 def full_size_run(build_session, mlstm):
@@ -365,7 +582,7 @@ def full_size_run(build_session, mlstm):
     state = session._state(IMAGE_ID)    # fixture decode: set-up, not timed
     torch.cuda.reset_peak_memory_stats()
 
-    mlstm.mlstm_cuda.launches = 0                     # main path starts
+    reset_counts()                                    # main path starts
     t0 = time.perf_counter()
     session.colorize(IMAGE_ID, text)
     torch.cuda.synchronize()
@@ -376,7 +593,7 @@ def full_size_run(build_session, mlstm):
     torch.cuda.synchronize()
     t2 = time.perf_counter()
     after_forced = mlstm.mlstm_cuda.launches
-    launches = after_forced                           # main path ends
+    launches = read_counts()                          # main path ends
     if after_color < 1 or after_forced - after_color < 1:
         raise AssertionError(f"kernel launches: {after_color} in the color "
                              f"command, {after_forced - after_color} in the "
@@ -448,9 +665,20 @@ def matching_batch(rng, cfg):
             "seq_len": np.array([3], np.int32), "target_mask": target}
 
 
-def check_training_against_cpu(mlstm):
+# A bias added to every word's logit before a softmax, which cannot see it:
+# its gradient is zero up to rounding, so its Adam updates are rounding
+# noise and it is neither compared across devices nor required to move.
+SHIFT_INVARIANT = ("text_sketchyscene.attn_fc.biases",)
+
+
+def check_training_against_cpu(variant: str = ""):
     """Three matching train steps at a small config on CUDA and on the CPU
-    from the same seeded weights and batches."""
+    from the same seeded weights and batches, with the default fusion or
+    the ``variant`` of VARIANTS.  Text leaves agree within 3e-2 lr; for a
+    variant fusion an element whose gradient is near Adam's eps may differ
+    more (a rounding difference in a gradient of 1e-8 moves its update by
+    a large part of lr), so there at most 1e-4 of a leaf's elements may
+    exceed that, by at most 10 lr."""
     import torch
     from sketchyscenecolorization_torch.config import MatchingConfig
     from sketchyscenecolorization_torch.models.rmi import RMI
@@ -459,7 +687,9 @@ def check_training_against_cpu(mlstm):
         create_matching_state, make_matching_train_step)
     cfg = MatchingConfig(vf_h=6, vf_w=6, H=48, W=48, vocab_size=12,
                          w_emb_dim=16, v_emb_dim=16, m_rnn_size=8,
-                         w_rnn_size=16, max_len=5, lr_decay_step=100)
+                         w_rnn_size=16, max_len=5, lr_decay_step=100,
+                         **VARIANTS.get(variant, {}))
+    fwd_name, bwd_name = FUSION_KERNELS[variant]
     cost_rtol, leaf_atol = 1e-4, 3 * 1e-2 * cfg.start_lr
     init = RMI(cfg, torch.Generator().manual_seed(0)).state_dict()
     rng = np.random.RandomState(0)
@@ -470,41 +700,52 @@ def check_training_against_cpu(mlstm):
         model.load_state_dict(init)
         state = create_matching_state(model.to(device), cfg)
         step = make_matching_train_step(cfg)
-        fwd, bwd = mlstm.mlstm_cuda.launches, mlstm.mlstm_bwd_cuda.launches
+        reset_counts()
         costs = []
         for batch in batches:
             state, metrics = step(state, to_device(batch, device))
             costs.append(float(metrics["cost"]))
+        counts = read_counts()
         runs[device] = (costs, {k: v.detach().cpu() for k, v in
                                 model.state_dict().items()},
-                        mlstm.mlstm_cuda.launches - fwd,
-                        mlstm.mlstm_bwd_cuda.launches - bwd)
+                        counts[fwd_name], counts[bwd_name])
     (c_gpu, w_gpu, f_gpu, b_gpu), (c_cpu, w_cpu, f_cpu, b_cpu) = \
         runs["cuda"], runs["cpu"]
     if f_gpu < 3 or b_gpu < 3 or f_cpu or b_cpu:
-        raise AssertionError(f"launches B1/B2: CUDA {f_gpu}/{b_gpu}, CPU "
-                             f"{f_cpu}/{b_cpu}; expected >= 3 on CUDA only")
+        raise AssertionError(f"launches {fwd_name}/{bwd_name}: CUDA "
+                             f"{f_gpu}/{b_gpu}, CPU {f_cpu}/{b_cpu}; expected "
+                             ">= 3 on CUDA only")
     cost_err = max(abs(a / b - 1) for a, b in zip(c_gpu, c_cpu))
     if not (np.isfinite(c_gpu).all() and cost_err <= cost_rtol):
         raise AssertionError(f"costs CUDA {c_gpu} vs CPU {c_cpu}")
-    leaf_err = 0.0
+    leaf_err, n_over = 0.0, 0
     for key, want in w_cpu.items():
         if key.startswith("ResNet."):
             if not (torch.equal(w_gpu[key], init[key])
                     and torch.equal(want, init[key])):
                 raise AssertionError(f"{key} moved")
             continue
-        leaf_err = max(leaf_err, float((w_gpu[key] - want).abs().max()))
+        if key in SHIFT_INVARIANT:
+            if not torch.isfinite(w_gpu[key]).all():
+                raise AssertionError(f"{key} not finite")
+            continue
+        diff = (w_gpu[key] - want).abs()
         if torch.equal(want, init[key]):
             raise AssertionError(f"{key} did not move")
-    if leaf_err > leaf_atol:
-        raise AssertionError(f"text leaves CUDA vs CPU: max-abs {leaf_err} > "
-                             f"{leaf_atol}")
-    log(f"small-config matching training, 3 steps, CUDA vs CPU: costs "
-        f"{[f'{c:.4f}' for c in c_gpu]}, max relative difference "
-        f"{cost_err:.2e} (tol {cost_rtol:.0e}); text leaves max-abs "
-        f"{leaf_err:.2e} (tol {leaf_atol:.1e}); ResNet bit-unchanged; "
-        f"{f_gpu} B1 and {b_gpu} B2 launches on CUDA")
+        over = int((diff > leaf_atol).sum())
+        if over and not (variant and over <= 1e-4 * diff.numel()
+                         and float(diff.max()) <= 10 * cfg.start_lr):
+            raise AssertionError(f"{key} CUDA vs CPU: {over} elements beyond "
+                                 f"{leaf_atol}, max-abs {float(diff.max())}")
+        n_over += over
+        leaf_err = max(leaf_err,
+                       float(diff.masked_fill(diff > leaf_atol, 0).max()))
+    log(f"small-config matching training{' (' + variant + ' fusion)' if variant else ''}"
+        f", 3 steps, CUDA vs CPU: costs {[f'{c:.4f}' for c in c_gpu]}, max "
+        f"relative difference {cost_err:.2e} (tol {cost_rtol:.0e}); text "
+        f"leaves max-abs {leaf_err:.2e} (tol {leaf_atol:.1e}; {n_over} "
+        f"near-eps elements beyond it); ResNet bit-unchanged; {f_gpu} "
+        f"{fwd_name} and {b_gpu} {bwd_name} launches on CUDA")
 
 
 def write_matching_corpus(base: str, size: int, n_images: int = 2):
@@ -615,7 +856,7 @@ def full_width_training(mlstm):
         return timed
 
     torch.cuda.reset_peak_memory_stats()
-    mlstm.mlstm_cuda.launches = mlstm.mlstm_bwd_cuda.launches = 0  # path
+    reset_counts()                                                 # path
     harness.make_matching_train_step = instrumented
     try:
         cli_matching.main(argv + ["--max_iteration", str(TRAIN_STEPS)])
@@ -624,8 +865,7 @@ def full_width_training(mlstm):
                                   str(TRAIN_STEPS + RESUME_STEPS)])
     finally:
         harness.make_matching_train_step = make_step
-    launches = {"mlstm_fwd": mlstm.mlstm_cuda.launches,               # ends
-                "mlstm_bwd": mlstm.mlstm_bwd_cuda.launches}
+    launches = read_counts()                                       # ends
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     last = latest_checkpoint(os.path.join(run_dir, "snapshots"))
 
@@ -661,12 +901,12 @@ def full_width_training(mlstm):
             (0, TRAIN_STEPS, PROFILED_STEP - 1)]
     kernels = profiled["kernels"]
     total = sum(kernels.values())
-    b2_names = ("mlstm_bwd_sweep", "mlstm_dwh", "mlstm_dstep", "sum_splits",
-                "transpose_kernel", "mlstm_fwd_kernel<true>")
+    b2_names = ("mlstm_bwd_sweep", "rows_product", "column_sums", "sum_rows",
+                "transpose_kernel", "mlstm_fwd_kernel<true, false>")
     b2_ms = sum(v for k, v in kernels.items()
                 if any(n in k for n in b2_names))
     b1_ms = sum(v for k, v in kernels.items()
-                if "mlstm_fwd_kernel<false>" in k)
+                if "mlstm_fwd_kernel<false, false>" in k)
     if total <= 0 or b2_ms <= 0 or b1_ms <= 0:
         raise AssertionError("torch.profiler saw no device time for the "
                              f"kernels: {sorted(kernels)[:20]}")
@@ -694,22 +934,194 @@ def full_width_training(mlstm):
     return launches, b2_ms
 
 
+def variant_session_run(build_session, variant):
+    """The session at full width with the ``variant`` fusion on the
+    synthetic 768x768 scene: a ``color`` command (the variant's forward
+    kernel launches) and a forced FG pass (B1 in the generator), counted;
+    then a warm ``color`` command with a new text.  Returns the launch
+    counts of the counted run."""
+    import torch
+    from sketchyscenecolorization_torch.config import (
+        FrameworkConfig, MatchingConfig, PipelineConfig)
+    tmp = tempfile.mkdtemp(prefix=f"smoke_full_{variant}_")
+    cfg = FrameworkConfig(
+        matching=MatchingConfig(**VARIANTS[variant]),
+        pipeline=PipelineConfig(
+            data_base_dir=os.path.join(tmp, "examples"),
+            results_base_dir=os.path.join(tmp, "outputs"),
+            match_vocab_path=os.path.join(ROOT, "data", "match_vocab.txt"),
+            fg_vocab_path=os.path.join(ROOT, "data", "fg_vocab.txt"),
+            bg_vocab_path=os.path.join(ROOT, "data", "bg_vocab.txt"),
+            match_ckpt_dir="", fg_ckpt_dir="", bg_ckpt_dir="",
+            device_compositing=False))
+    m = cfg.matching
+    fwd_name = FUSION_KERNELS[variant][0]
+    eligible = write_scene(os.path.join(tmp, "examples"), m.H)
+    session = build_session(cfg, seed=0, device="cuda")
+    state = session._state(IMAGE_ID)    # fixture decode: set-up, not timed
+    torch.cuda.reset_peak_memory_stats()
+    text = "the bus is yellow"
+
+    reset_counts()                                    # path starts
+    t0 = time.perf_counter()
+    session.colorize(IMAGE_ID, text)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    after_color = read_counts()
+    session.colorize_foreground(IMAGE_ID, text, eligible,
+                                f"{IMAGE_ID}_forced.png", f"{IMAGE_ID}_1.png")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = read_counts()                            # path ends
+    if after_color[fwd_name] < 1 or \
+            counts["mlstm_fwd"] - after_color["mlstm_fwd"] < 1:
+        raise AssertionError(f"{variant} session: {after_color[fwd_name]} "
+                             f"{fwd_name} launches in the color command, "
+                             f"{counts['mlstm_fwd'] - after_color['mlstm_fwd']}"
+                             " B1 launches in the forced FG pass")
+    t3 = time.perf_counter()
+    session.colorize(IMAGE_ID, "the car is red")
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    with torch.no_grad():
+        words, lens = session.matching.encode_texts([text])
+        up = session.matching.model.apply_fused(
+            state.visual_dev, torch.from_numpy(words).long().to("cuda"),
+            torch.from_numpy(lens).long().to("cuda")).up
+    if up.shape != (1, m.H, m.W, 1) or not torch.isfinite(up).all():
+        raise AssertionError(f"{variant} logits {tuple(up.shape)} not finite")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"full-width session, {variant} fusion (m_rnn {m.m_rnn_size}, w_rnn "
+        f"{m.w_rnn_size}): launches {counts}; cold color {t1 - t0:.3f} s "
+        f"({after_color[fwd_name]} {fwd_name}), forced FG pass {t2 - t1:.3f} s"
+        f", warm color (new text) {t4 - t3:.3f} s; up logits finite; peak "
+        f"device memory {peak:.2f} GiB")
+    return counts
+
+
+def variant_training(variant):
+    """``train_matching`` at full width with the ``variant`` fusion for
+    VARIANT_STEPS steps on the synthetic corpus, the last under
+    ``torch.profiler``: every step launches the fusion's forward and
+    backward kernel, losses are finite, the text leaves move (but
+    SHIFT_INVARIANT) and ResNet does not.  Returns the launch counts of the
+    run."""
+    import torch
+    from sketchyscenecolorization_torch.config import MatchingConfig
+    from sketchyscenecolorization_torch.data import MatchingTrainDataset
+    from sketchyscenecolorization_torch.models.rmi import RMI
+    from sketchyscenecolorization_torch.text import load_vocab
+    from sketchyscenecolorization_torch.train import harness
+    cfg = MatchingConfig(**VARIANTS[variant])
+    fwd_name, bwd_name = FUSION_KERNELS[variant]
+    tmp = tempfile.mkdtemp(prefix=f"smoke_train_{variant}_")
+    write_matching_corpus(tmp, cfg.H)
+    ds = MatchingTrainDataset(
+        os.path.join(tmp, "train"),
+        os.path.join(tmp, "sentence_instance_train.json"),
+        load_vocab(os.path.join(ROOT, "data", "match_vocab.txt")),
+        max_len=cfg.max_len)
+    model = RMI(cfg, torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    records, profiled = [], {}
+    make_step = harness.make_matching_train_step
+
+    def instrumented(step_cfg):
+        step = make_step(step_cfg)
+
+        def timed(state, batch):
+            before = read_counts()
+            if len(records) + 1 == VARIANT_STEPS:
+                state, metrics, wall, kernels = profile_step(step, state,
+                                                             batch)
+                profiled.update(kernels=kernels, wall=wall)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            after = read_counts()
+            records.append((wall,
+                            after[fwd_name] - before[fwd_name],
+                            after[bwd_name] - before[bwd_name],
+                            float(metrics["cost"]),
+                            float(metrics["cls_loss"]),
+                            int((batch["words"] != 0).sum())))
+            return state, metrics
+        return timed
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                    # path starts
+    harness.make_matching_train_step = instrumented
+    try:
+        state = harness.train_matching(cfg, ds, model,
+                                       os.path.join(tmp, "run"),
+                                       log_every=VARIANT_STEPS,
+                                       max_iters=VARIANT_STEPS, device="cuda")
+    finally:
+        harness.make_matching_train_step = make_step
+    counts = read_counts()                            # path ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(records) != VARIANT_STEPS:
+        raise AssertionError(f"{len(records)} {variant} steps ran")
+    for i, (_, fwd, bwd, cost, cls, _) in enumerate(records):
+        if fwd < 1 or bwd < 1 or not np.isfinite([cost, cls]).all():
+            raise AssertionError(f"{variant} step {i + 1}: {fwd} {fwd_name} "
+                                 f"and {bwd} {bwd_name} launches, cost "
+                                 f"{cost}, cls_loss {cls}")
+    still = []
+    for key, value in state.model.state_dict().items():
+        same = torch.equal(value.cpu(), init[key])
+        if key.startswith("ResNet.") and not same:
+            raise AssertionError(f"{key} moved in {variant} training")
+        if key.startswith("text_sketchyscene.") and same and \
+                key not in SHIFT_INVARIANT:
+            still.append(key)
+    if still:
+        raise AssertionError(f"{variant} text leaves that did not move: "
+                             f"{still}")
+    walls = [r[0] for r in records]
+    warm_ms = float(np.median(walls[1:-1])) * 1e3
+    kernels = profiled["kernels"]
+    total = sum(kernels.values())
+    f_ms, b_ms = (sum(v for k, v in kernels.items()
+                      if any(name in k for name in names))
+                  for names in PROFILE_NAMES[variant])
+    if total <= 0 or f_ms <= 0 or b_ms <= 0:
+        raise AssertionError("torch.profiler saw no device time for the "
+                             f"{variant} kernels: {sorted(kernels)[:20]}")
+    log(f"full-width training, {variant} fusion, {VARIANT_STEPS} steps: "
+        f"losses (cost/cls) "
+        + ", ".join(f"{c:.1f}/{l:.1f}" for _, _, _, c, l, _ in records)
+        + f"; words per step {[r[5] for r in records]}; launches per step "
+        f"({fwd_name}, {bwd_name}) {[(r[1], r[2]) for r in records]}; step "
+        f"wall first {walls[0]:.4f} s, then "
+        + ", ".join(f"{w:.4f}" for w in walls[1:-1])
+        + f" s (median {warm_ms / 1e3:.4f} s); peak device memory "
+        f"{peak:.2f} GiB; text leaves moved, ResNet bit-unchanged")
+    log(f"  profiled step {VARIANT_STEPS} (torch.profiler on, wall "
+        f"{profiled['wall'] * 1e3:.1f} ms): device kernel time {total:.2f} "
+        f"ms, {fwd_name} {f_ms:.2f} ms, {bwd_name} {b_ms:.2f} ms "
+        f"({(f_ms + b_ms) / total:.1%} of device time); against the median "
+        f"warm step: device idle {1 - total / warm_ms:.1%}")
+    return counts
+
+
 def kernel_entry(name, source, replaces, launches_by_path, err, ms,
-                 plain_ms, shape):
+                 plain_ms, bound_ms_by, shape_name):
     """One entry of the kernels line.  ``launches`` is the total over the
     paths' runs, ``launches_by_path`` the count of each path (every count
     set to 0 just before that path and read just after it)."""
-    _, n, p, hid, t, n_valid, _ = shape
-    bound_fn = fwd_bound if name == "mlstm_fwd" else bwd_bound
-    b_ms, b_by = bound_fn(n, p, hid, t, n_valid)
     return {"name": name, "route": "cuda",
             "source": f"sketchyscenecolorization_torch/csrc/{source}",
             "replaces": f"sketchyscenecolorization_tpu/ops/pallas_mlstm.py:"
                         f"{replaces}",
             "launches": sum(launches_by_path.values()),
             "launches_by_path": launches_by_path, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None, "shape": shape[0]}
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
+            "bound_by": bound_ms_by[1], "library_ms": None,
+            "shape": shape_name}
 
 
 def main() -> int:
@@ -744,24 +1156,57 @@ def main() -> int:
 
     fwd = check_kernel(mlstm)
     bwd = check_bwd_kernel(mlstm)
-    log(f"library call: none for B1 or B2 ({NO_LIBRARY})")
+    attn = check_variant_kernels("attn")
+    recur = check_variant_kernels("recur")
+    log(f"library call: none for B1-B6 ({NO_LIBRARY}; B5/B6 also attend "
+        "over the word-LSTM outputs inside the recurrence)")
     check_against_cpu(build_session)
-    check_training_against_cpu(mlstm)
-    session_launches = full_size_run(build_session, mlstm)
+    check_training_against_cpu()
+    paths = {"color": full_size_run(build_session, mlstm)}
     torch.cuda.empty_cache()
-    train_launches, _ = full_width_training(mlstm)
+    paths["train_matching"], _ = full_width_training(mlstm)
+    for variant in VARIANTS:
+        torch.cuda.empty_cache()
+        check_against_cpu(build_session, variant)
+        check_training_against_cpu(variant)
+        paths[f"color_{variant}"] = variant_session_run(build_session, variant)
+        torch.cuda.empty_cache()
+        paths[f"train_{variant}"] = variant_training(variant)
 
-    rmi = SHAPES[0]
+    by_kernel = {k: {path: c[k] for path, c in paths.items() if c[k]}
+                 for k in kernel_counters()}
+    idle = [k for k, v in by_kernel.items() if not v]
+    if idle:
+        raise AssertionError(f"kernels never launched on a path: {idle}")
+    rmi, (_, n, p, hid, t, rows) = SHAPES[0], RECUR_SHAPES[0]
+    a_shape = ATTN_SHAPES[0]
     log(json.dumps({"kernels": [
-        kernel_entry("mlstm_fwd", "mlstm_fwd.cu", 45,
-                     {"color": session_launches,
-                      "train_matching": train_launches["mlstm_fwd"]},
+        kernel_entry("mlstm_fwd", "mlstm_fwd.cu", 45, by_kernel["mlstm_fwd"],
                      max(e for e, _, _ in fwd.values()), fwd["rmi"][1],
-                     fwd["rmi"][2], rmi),
-        kernel_entry("mlstm_bwd", "mlstm_bwd.cu", 778,
-                     {"train_matching": train_launches["mlstm_bwd"]},
+                     fwd["rmi"][2], fwd_bound(*rmi[1:6]), rmi[0]),
+        kernel_entry("mlstm_bwd", "mlstm_bwd.cu", 778, by_kernel["mlstm_bwd"],
                      max(e for e, _, _, _ in bwd.values()), bwd["rmi"][2],
-                     bwd["rmi"][3], rmi)]}))
+                     bwd["rmi"][3], bwd_bound(*rmi[1:6]), rmi[0]),
+        kernel_entry("mlstm_attn_fwd", "mlstm_fwd.cu", 143,
+                     by_kernel["mlstm_attn_fwd"],
+                     max(r[0] for r in attn.values()), attn[a_shape[0]][1],
+                     attn[a_shape[0]][2], attn_fwd_bound(*a_shape[1:]),
+                     a_shape[0]),
+        kernel_entry("mlstm_attn_bwd", "mlstm_bwd.cu", 279,
+                     by_kernel["mlstm_attn_bwd"],
+                     max(r[3] for r in attn.values()), attn[a_shape[0]][5],
+                     attn[a_shape[0]][6], attn_bwd_bound(*a_shape[1:]),
+                     a_shape[0]),
+        kernel_entry("recur_attn_fwd", "recur_attn_fwd.cu", 430,
+                     by_kernel["recur_attn_fwd"],
+                     max(r[0] for r in recur.values()), recur["recur"][1],
+                     recur["recur"][2], recur_fwd_bound(n, p, hid, t, rows),
+                     "recur"),
+        kernel_entry("recur_attn_bwd", "recur_attn_bwd.cu", 554,
+                     by_kernel["recur_attn_bwd"],
+                     max(r[3] for r in recur.values()), recur["recur"][5],
+                     recur["recur"][6], recur_bwd_bound(n, p, hid, t, rows),
+                     "recur")]}))
     log(smi.splitlines()[0])
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

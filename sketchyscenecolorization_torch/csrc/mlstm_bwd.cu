@@ -19,6 +19,20 @@
 //
 // A masked step leaves dh and dc unchanged and contributes nothing.
 //
+// Instantiated with kAttn it is B4, the backward of the word-attention
+// variant B3 (csrc/mlstm_fwd.cu), which replaces the TPU kernel
+// `_mlstm_attn_bwd_kernel` (pallas_mlstm.py, `mlstm_attn_pallas_bwd`).  Its
+// g is dL/dacc, acc = sum over kept steps of attn[n, t] * h_t, so
+//   * dh starts at 0 and gains attn[n, t] * g at every kept step, before
+//     that step's cell gradient (g is read again from device memory at each
+//     step: the sweep's registers are full);
+//   * d_attn[n, t] = sum over pixels and units of g * h_t at a kept step
+//     (0 at a masked one), where h_t = so * tanh(c_t) is the step's new h,
+//     which the cell gradient computes anyway.  Each sweep block reduces its
+//     tile's share in shared memory in a fixed tree order and writes it to
+//     a partial [N, T, tiles]; a last kernel adds the tiles in order.
+// Everything else (staging forward, d_W_h without slot 0, d_step) is B2's.
+//
 // Design.  The TPU kernel kept each tile's h/c trajectory in VMEM and summed
 // d_step and d_W_h into output blocks that its sequential grid revisits.  A
 // GPU has neither 0.5 GB of on-chip memory nor a sequential grid, so the
@@ -40,13 +54,15 @@
 //      block touches.  W_h^T streams from L2 in double-buffered cp.async
 //      chunks, as W_h does in the forward.  The first step (last in the
 //      sweep) needs no dh, so its product is skipped;
-//   4. d_W_h = sum over (n, valid slot, p) of h_prev^T dgates: a tiled f32
-//      product (64x64 output tile per block, 4x4 per thread) whose K runs
-//      over the staged rows of every valid step but the first (whose h_prev
-//      is 0).  When that gives too few blocks the pixels are
-//      split into `splits` ranges, each block writes a partial, and a
-//      second pass sums the partials in a fixed order;
-//   5. d_step = the column sum of dgates over pixels, in a fixed order.
+//   4. d_W_h = sum over (n, valid slot, p) of h_prev^T dgates: the tiled f32
+//      product rows_product_kernel of csrc/common.cuh (64x64 output tile per
+//      block, 4x4 per thread) whose K runs over the staged rows of every
+//      valid step but the first (whose h_prev is 0).  When that gives too
+//      few blocks the pixels are split into `splits` ranges, each block
+//      writes a partial, and a second pass sums the partials in a fixed
+//      order;
+//   5. d_step = the column sum of dgates over pixels, in a fixed order
+//      (column_sums_kernel of csrc/common.cuh).
 //
 // What bounds it on an H100: f32 FMAs on the CUDA cores.  Three products of
 // 2*P*H*4H flops per valid step after the first (the staging forward, dh,
@@ -60,7 +76,7 @@
 // time.  The products are simple register-tiled loops; wgmma in TF32 or
 // bf16, TMA and fusing the reductions into the sweep are later work.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 extern "C" int mlstm_fwd_stage(const float* pixel, const float* step,
                                const float* wh, const int* valid,
@@ -73,75 +89,46 @@ namespace {
 constexpr int kPixelsPerThread = 8;   // PP: pixels of a thread in the sweep
 constexpr int kUnitsPerThread = 4;    // UU: hidden units of a thread
 constexpr int kSweepThreads = 256;
-constexpr int kTile = 64;             // d_W_h output tile (square)
-constexpr int kDepth = 16;            // d_W_h rows per shared-memory stage
-
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-__device__ __forceinline__ int valid_before(const int* valid, int T, int t) {
-  int k = 0;
-  for (int s = 0; s < t; ++s) k += valid[s] != 0;
-  return k;
-}
-
-// W_h [H, 4H] -> W_h^T [4H, H], 32x32 tiles through shared memory.
-__global__ void transpose_kernel(const float* __restrict__ src,
-                                 float* __restrict__ dst, int rows, int cols) {
-  __shared__ float tile[32][33];
-  const int c = blockIdx.x * 32 + threadIdx.x;
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int r = blockIdx.y * 32 + i;
-    if (r < rows && c < cols) tile[i][threadIdx.x] = src[(size_t)r * cols + c];
-  }
-  __syncthreads();
-  const int r = blockIdx.y * 32 + threadIdx.x;
-  for (int i = threadIdx.y; i < 32; i += blockDim.y) {
-    const int cc = blockIdx.x * 32 + i;
-    if (r < rows && cc < cols) dst[(size_t)cc * rows + r] = tile[threadIdx.x][i];
-  }
-}
 
 // Copy rows [ch*kc, ch*kc + kc) of W_h^T [4H, H] into `dst`.
 __device__ __forceinline__ void load_chunk(float* dst, const float* wt,
                                            int ch, int kc, int H) {
   const int k0 = ch * kc;
-  const int rows = min(kc, 4 * H - k0);
-  const float* src = wt + (size_t)k0 * H;
-  const int n16 = rows * H / 4;
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) {
-    cp_async16(dst + 4 * i, src + 4 * i);
-  }
-  cp_async_commit();
+  load_rows(dst, wt, k0, min(kc, 4 * H - k0), H);
 }
 
-// Cell gradient of one valid step (scratch slot `slot`) for this thread's 4
-// units of 8 pixels.  Reads dh and updates dc in registers; writes dgates
-// to shared memory (zeros for pixel rows past P), in place over the staged
-// gates, and into d_pixel (stored at the first step of the sweep, added
-// afterwards).
+// Sum of v over the block in a fixed tree order (red_s: blockDim floats of
+// shared memory); the result is valid in thread 0.  Every thread calls it.
+__device__ __forceinline__ float block_sum(float v, float* red_s) {
+  red_s[threadIdx.x] = v;
+  __syncthreads();
+  for (int s = kSweepThreads / 2; s > 0; s >>= 1) {
+    if (threadIdx.x < s && threadIdx.x + s < blockDim.x) {
+      red_s[threadIdx.x] += red_s[threadIdx.x + s];
+    }
+    __syncthreads();
+  }
+  return red_s[0];
+}
+
+// Cell gradient of one valid step (scratch slot `slot`, step t) for this
+// thread's 4 units of 8 pixels.  Reads dh and updates dc in registers;
+// writes dgates to shared memory (zeros for pixel rows past P), in place
+// over the staged gates, and into d_pixel (stored at the first step of the
+// sweep, added afterwards).  With kAttn, dh gains attn[n, t] * g first and
+// the tile's share of d_attn[n, t] goes to attn_part.
+template <bool kAttn>
 __device__ __forceinline__ void cell_backward(
     float (&dh)[kPixelsPerThread][kUnitsPerThread],
     float (&dc)[kPixelsPerThread][kUnitsPerThread], float* dg_s,
     const float* __restrict__ stage_c, float* __restrict__ stage_g,
-    float* __restrict__ dpix, int n, int slot, int p0, int r0, int u0, int P,
+    float* __restrict__ dpix, const float* __restrict__ gout,
+    const float* __restrict__ attn, float* __restrict__ attn_part,
+    float* red_s, int n, int slot, int t, int p0, int r0, int u0, int P,
     int H, int T, bool first) {
   const int H4 = 4 * H;
+  const float a = kAttn ? attn[n * T + t] : 0.0f;
+  float gh = 0.0f;                // this thread's share of <g, h_t>
 #pragma unroll
   for (int q = 0; q < kPixelsPerThread; ++q) {
     const int p = p0 + r0 + q;
@@ -154,11 +141,17 @@ __device__ __forceinline__ void cell_backward(
       gate[g] = *reinterpret_cast<const float4*>(gr + g * H);
     }
     const float4 cp4 = *reinterpret_cast<const float4*>(stage_c + row * H + u0);
+    float4 g4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (kAttn) {
+      g4 = *reinterpret_cast<const float4*>(
+          gout + ((size_t)n * P + min(p, P - 1)) * H + u0);
+    }
     const float* gi = &gate[0].x;
     const float* gj = &gate[1].x;
     const float* gf = &gate[2].x;
     const float* go = &gate[3].x;
     const float* cp = &cp4.x;
+    const float* gv = &g4.x;
     float d[4][kUnitsPerThread];
 #pragma unroll
     for (int u = 0; u < kUnitsPerThread; ++u) {
@@ -167,6 +160,10 @@ __device__ __forceinline__ void cell_backward(
       const float sf = sigmoid_f(gf[u] + 1.0f);
       const float so = sigmoid_f(go[u]);
       const float tc = tanhf(cp[u] * sf + si * tj);
+      if (kAttn) {
+        if (live) gh = fmaf(gv[u], so * tc, gh);
+        dh[q][u] += a * gv[u];
+      }
       const float dhu = dh[q][u];
       const float dct = dc[q][u] + dhu * so * (1.0f - tc * tc);
       d[0][u] = dct * tj * si * (1.0f - si);
@@ -194,15 +191,24 @@ __device__ __forceinline__ void cell_backward(
       }
     }
   }
+  if (kAttn) {
+    const float total = block_sum(gh, red_s);
+    if (threadIdx.x == 0) {
+      attn_part[((size_t)n * T + t) * gridDim.x + blockIdx.x] = total;
+    }
+  }
 }
 
+template <bool kAttn>
 __global__ void __launch_bounds__(kSweepThreads)
 mlstm_bwd_sweep_kernel(const float* __restrict__ gout,    // [N, P, H]
                        const float* __restrict__ wt,      // [4H, H]
                        const int* __restrict__ valid,     // [N, T]
+                       const float* __restrict__ attn,    // [N, T] (kAttn)
                        const float* __restrict__ stage_c, // [N, T, P, H]
                        float* __restrict__ stage_g,       // [N, T, P, 4H]
                        float* __restrict__ dpix,          // [N, P, 4H]
+                       float* __restrict__ attn_part,     // [N, T, tiles]
                        int P, int H, int T, int tile, int kc) {
   constexpr int PP = kPixelsPerThread;
   constexpr int UU = kUnitsPerThread;
@@ -211,6 +217,7 @@ mlstm_bwd_sweep_kernel(const float* __restrict__ gout,    // [N, P, H]
   const int H4 = 4 * H;
   float* const dg_s = smem;                   // [tile, 4H]
   float* const w_stages = dg_s + tile * H4;   // 2 x [kc, H]
+  float* const red_s = w_stages + 2 * kc * H; // [kSweepThreads]
   const int stage_size = kc * H;
 
   const int n = blockIdx.y;
@@ -225,8 +232,10 @@ mlstm_bwd_sweep_kernel(const float* __restrict__ gout,    // [N, P, H]
 #pragma unroll
   for (int q = 0; q < PP; ++q) {
     const int p = min(p0 + r0 + q, P - 1);
-    const float4 gv =
-        *reinterpret_cast<const float4*>(gout + ((size_t)n * P + p) * H + u0);
+    float4 gv = make_float4(0.f, 0.f, 0.f, 0.f);    // kAttn: dh starts at 0
+    if (!kAttn) {
+      gv = *reinterpret_cast<const float4*>(gout + ((size_t)n * P + p) * H + u0);
+    }
     dh[q][0] = gv.x; dh[q][1] = gv.y; dh[q][2] = gv.z; dh[q][3] = gv.w;
 #pragma unroll
     for (int u = 0; u < UU; ++u) dc[q][u] = 0.0f;
@@ -249,9 +258,11 @@ mlstm_bwd_sweep_kernel(const float* __restrict__ gout,    // [N, P, H]
   const int n_chunks = (H4 + kc - 1) / kc;
   const int total = (n_valid - 1) * n_chunks;  // no dh after the first step
   int slot = n_valid - 1;
+  int t = slot_step(vrow, T, slot);
   if (total > 0) load_chunk(w_stages, wt, 0, kc, H);
-  cell_backward(dh, dc, dg_s, stage_c, stage_g, dpix, n, slot, p0, r0, u0, P,
-                H, T, true);
+  cell_backward<kAttn>(dh, dc, dg_s, stage_c, stage_g, dpix, gout, attn,
+                       attn_part, red_s, n, slot, t, p0, r0, u0, P, H, T,
+                       true);
 
   for (int it = 0; it < total; ++it) {
     const int ch = it % n_chunks;
@@ -293,123 +304,74 @@ mlstm_bwd_sweep_kernel(const float* __restrict__ gout,    // [N, P, H]
     }
     if (ch == n_chunks - 1) {      // dh of the previous valid step is done
       --slot;
+      do {
+        --t;
+      } while (vrow[t] == 0);
       __syncthreads();             // every thread has finished with dg_s
-      cell_backward(dh, dc, dg_s, stage_c, stage_g, dpix, n, slot, p0, r0, u0,
-                    P, H, T, false);
+      cell_backward<kAttn>(dh, dc, dg_s, stage_c, stage_g, dpix, gout, attn,
+                           attn_part, red_s, n, slot, t, p0, r0, u0, P, H, T,
+                           false);
     }
   }
 }
 
-// out[split] [H, 4H] = sum over (n, valid slot > 0, p in this split's pixel
-// range) of stage_h[n, slot, p, :]^T stage_g[n, slot, p, :].  Slot 0 is
-// left out: its h_prev is the initial h = 0.
-__global__ void __launch_bounds__(256)
-mlstm_dwh_kernel(const float* __restrict__ stage_h,   // [N, T, P, H]
-                 const float* __restrict__ dgates,    // [N, T, P, 4H]
-                 const int* __restrict__ valid,       // [N, T]
-                 float* __restrict__ out,             // [splits, H, 4H]
-                 int N, int P, int H, int T, int p_chunk) {
-  __shared__ __align__(16) float a_s[kDepth][kTile];
-  __shared__ __align__(16) float b_s[kDepth][kTile];
+// d_attn[n, t] = sum over tiles of attn_part[n, t, tile] in tile order at a
+// valid step, else 0.
+__global__ void attn_sum_kernel(const float* __restrict__ attn_part,
+                                const int* __restrict__ valid,
+                                float* __restrict__ dattn, int NT, int tiles) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= NT) return;
+  float s = 0.0f;
+  if (valid[i] != 0) {
+    for (int k = 0; k < tiles; ++k) s += attn_part[(size_t)i * tiles + k];
+  }
+  dattn[i] = s;
+}
+
+template <bool kAttn>
+int bwd(const float* pixel, const float* step, const float* wh,
+        const int* valid, const float* attn, const float* gout, float* dpix,
+        float* dstep, float* dwh, float* dattn, float* wt, float* stage_h,
+        float* stage_c, float* stage_g, float* partials, float* attn_part,
+        int N, int P, int H, int T, int fwd_tile, int fwd_kc, int tile,
+        int kc, int splits, void* stream) {
+  const int threads = (H / kUnitsPerThread) * (tile / kPixelsPerThread);
+  if (N <= 0 || P <= 0 || T <= 0 || H <= 0 || H % 4 != 0 || N > 65535 ||
+      T > 65535 || tile <= 0 || tile % kPixelsPerThread != 0 ||
+      threads > kSweepThreads || kc <= 0 || kc % 4 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int H4 = 4 * H;
-  const int m0 = blockIdx.y * kTile;       // rows of d_W_h (units of h)
-  const int c0 = blockIdx.x * kTile;       // columns (gate columns)
-  const int p_lo = blockIdx.z * p_chunk;
-  const int p_hi = min(P, p_lo + p_chunk);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int lr = threadIdx.x / 16, lc = 4 * (threadIdx.x % 16);
-  const bool a_in = m0 + lc < H;           // H, 4H are multiples of 4
-  const bool b_in = c0 + lc < H4;
 
-  float acc[4][4] = {};
-  for (int n = 0; n < N; ++n) {
-    const int n_valid = valid_before(valid + n * T, T, T);
-    for (int slot = 1; slot < n_valid; ++slot) {   // slot 0: h_prev = 0
-      const size_t base = ((size_t)n * T + slot) * P;
-      for (int p = p_lo; p < p_hi; p += kDepth) {
-        const int pr = p + lr;
-        float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-        float4 b = a;
-        if (pr < p_hi && a_in) {
-          a = *reinterpret_cast<const float4*>(stage_h + (base + pr) * H + m0 + lc);
-        }
-        if (pr < p_hi && b_in) {
-          b = *reinterpret_cast<const float4*>(dgates + (base + pr) * H4 + c0 + lc);
-        }
-        __syncthreads();           // the previous stage has been consumed
-        *reinterpret_cast<float4*>(&a_s[lr][lc]) = a;
-        *reinterpret_cast<float4*>(&b_s[lr][lc]) = b;
-        __syncthreads();
-#pragma unroll
-        for (int k = 0; k < kDepth; ++k) {
-          const float4 av = *reinterpret_cast<const float4*>(&a_s[k][4 * ty]);
-          const float4 bv = *reinterpret_cast<const float4*>(&b_s[k][4 * tx]);
-          const float ar[4] = {av.x, av.y, av.z, av.w};
-          const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-#pragma unroll
-            for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-          }
-        }
-      }
-    }
-  }
-  const int col = c0 + 4 * tx;
-  if (col >= H4) return;
-  float* o = out + (size_t)blockIdx.z * H * H4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + 4 * ty + i;
-    if (row < H) {
-      *reinterpret_cast<float4*>(o + (size_t)row * H4 + col) =
-          make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    }
-  }
-}
+  int rc = launch_transpose(wh, wt, H, H4, s);
+  if (rc != 0) return rc;
+  rc = mlstm_fwd_stage(pixel, step, wh, valid, stage_h, stage_c, stage_g, N,
+                       P, H, T, fwd_tile, fwd_kc, stream);
+  if (rc != 0) return rc;
 
-// out = sum over s of partials[s], in order of s (float4 per thread).
-__global__ void sum_splits_kernel(const float* __restrict__ partials,
-                                  float* __restrict__ out, int splits,
-                                  size_t n4) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n4) return;
-  const float4* src = reinterpret_cast<const float4*>(partials);
-  float4 s = src[i];
-  for (int k = 1; k < splits; ++k) {
-    const float4 v = src[k * n4 + i];
-    s.x += v.x; s.y += v.y; s.z += v.z; s.w += v.w;
-  }
-  reinterpret_cast<float4*>(out)[i] = s;
-}
+  const size_t smem = (size_t)4 * (tile * H4 + 2 * kc * H + kSweepThreads);
+  cudaError_t err = cudaFuncSetAttribute(
+      mlstm_bwd_sweep_kernel<kAttn>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (P + tile - 1) / tile;
+  mlstm_bwd_sweep_kernel<kAttn><<<dim3(tiles, N), threads, smem, s>>>(
+      gout, wt, valid, attn, stage_c, stage_g, dpix, attn_part, P, H, T, tile,
+      kc);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
 
-// d_step[n, t, col] = sum over p of dgates[n, slot(t), p, col] for a valid
-// step t, else 0.  Block (32 columns, 8 pixel lanes); the lanes' sums are
-// added in lane order.
-__global__ void mlstm_dstep_kernel(const float* __restrict__ dgates,
-                                   const int* __restrict__ valid,
-                                   float* __restrict__ dstep, int P, int H4,
-                                   int T) {
-  __shared__ float part[8][33];
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  const int t = blockIdx.y;
-  const int n = blockIdx.z;
-  const int* vrow = valid + n * T;
-  const bool v = vrow[t] != 0;
-  float sum = 0.0f;
-  if (v && col < H4) {
-    const size_t base = ((size_t)n * T + valid_before(vrow, T, t)) * P;
-    for (int p = threadIdx.y; p < P; p += 8) {
-      sum += dgates[(base + p) * H4 + col];
-    }
-  }
-  part[threadIdx.y][threadIdx.x] = sum;
-  __syncthreads();
-  if (threadIdx.y == 0 && col < H4) {
-    float total = 0.0f;
-    for (int k = 0; k < 8; ++k) total += part[k][threadIdx.x];
-    dstep[((size_t)n * T + t) * H4 + col] = total;
-  }
+  // d_W_h: slot 0 is left out, its h_prev is the initial h = 0
+  rc = launch_rows_product(stage_h, H, H, stage_g, H4, H4, valid, dwh,
+                           partials, N, P, T, 1, splits, s);
+  if (rc != 0) return rc;
+  rc = launch_column_sums(stage_g, valid, dstep, N, P, H4, T, s);
+  if (rc != 0 || !kAttn) return rc;
+  attn_sum_kernel<<<(N * T + 255) / 256, 256, 0, s>>>(attn_part, valid, dattn,
+                                                       N * T, tiles);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -428,51 +390,24 @@ extern "C" int mlstm_bwd(const float* pixel, const float* step,
                          float* partials, int N, int P, int H, int T,
                          int fwd_tile, int fwd_kc, int tile, int kc,
                          int splits, void* stream) {
-  const int threads = (H / kUnitsPerThread) * (tile / kPixelsPerThread);
-  if (N <= 0 || P <= 0 || T <= 0 || H <= 0 || H % 4 != 0 || N > 65535 ||
-      T > 65535 || tile <= 0 || tile % kPixelsPerThread != 0 ||
-      threads > kSweepThreads || kc <= 0 || kc % 4 != 0 || splits <= 0 ||
-      splits > 65535 || (splits > 1 && partials == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int H4 = 4 * H;
+  return bwd<false>(pixel, step, wh, valid, nullptr, gout, dpix, dstep, dwh,
+                    nullptr, wt, stage_h, stage_c, stage_g, partials, nullptr,
+                    N, P, H, T, fwd_tile, fwd_kc, tile, kc, splits, stream);
+}
 
-  transpose_kernel<<<dim3((H4 + 31) / 32, (H + 31) / 32), dim3(32, 8), 0, s>>>(
-      wh, wt, H, H4);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  int rc = mlstm_fwd_stage(pixel, step, wh, valid, stage_h, stage_c, stage_g,
-                           N, P, H, T, fwd_tile, fwd_kc, stream);
-  if (rc != 0) return rc;
-
-  const size_t smem = (size_t)4 * (tile * H4 + 2 * kc * H);
-  err = cudaFuncSetAttribute(mlstm_bwd_sweep_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  mlstm_bwd_sweep_kernel<<<dim3((P + tile - 1) / tile, N), threads, smem, s>>>(
-      gout, wt, valid, stage_c, stage_g, dpix, P, H, T, tile, kc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const int p_chunk = (P + splits - 1) / splits;
-  const dim3 grid((H4 + kTile - 1) / kTile, (H + kTile - 1) / kTile, splits);
-  mlstm_dwh_kernel<<<grid, 256, 0, s>>>(stage_h, stage_g, valid,
-                                        splits > 1 ? partials : dwh, N, P, H,
-                                        T, p_chunk);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  if (splits > 1) {
-    const size_t n4 = (size_t)H * H4 / 4;
-    sum_splits_kernel<<<(unsigned)((n4 + 255) / 256), 256, 0, s>>>(
-        partials, dwh, splits, n4);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-
-  mlstm_dstep_kernel<<<dim3((H4 + 31) / 32, T, N), dim3(32, 8), 0, s>>>(
-      stage_g, valid, dstep, P, H4, T);
-  return (int)cudaGetLastError();
+// B4: the same plus attn [N, T] in, d_attn [N, T] out, and the per-tile
+// d_attn partials attn_part [N, T, ceil(P / tile)] (scratch); gout is
+// dL/dacc.
+extern "C" int mlstm_attn_bwd(const float* pixel, const float* step,
+                              const float* wh, const int* valid,
+                              const float* attn, const float* gout,
+                              float* dpix, float* dstep, float* dwh,
+                              float* dattn, float* wt, float* stage_h,
+                              float* stage_c, float* stage_g, float* partials,
+                              float* attn_part, int N, int P, int H, int T,
+                              int fwd_tile, int fwd_kc, int tile, int kc,
+                              int splits, void* stream) {
+  return bwd<true>(pixel, step, wh, valid, attn, gout, dpix, dstep, dwh,
+                   dattn, wt, stage_h, stage_c, stage_g, partials, attn_part,
+                   N, P, H, T, fwd_tile, fwd_kc, tile, kc, splits, stream);
 }

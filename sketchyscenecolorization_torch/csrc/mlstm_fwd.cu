@@ -10,6 +10,19 @@
 //
 // and writes the final h [N, P, H].  Pure f32: no tensor cores.
 //
+// Instantiated with kAttn it is B3, the word-attention variant, which
+// replaces the TPU kernel `_mlstm_attn_kernel` (pallas_mlstm.py, called
+// through `mlstm_attn_pallas`): instead of the final h it writes
+// acc = sum over kept steps of attn[n, t] * h_t [N, P, H].  acc lives in the
+// output buffer itself, which only the thread that owns a (pixel, unit)
+// touches: stored at the first kept step, added to at every later one, after
+// the cell loop so that the gate accumulators are dead (a read and a write
+// of [P, H] per kept step, 37 MB at the matching shape, about 0.01 ms of
+// HBM time).  Shared memory and registers are full with B1's h, c, W_h
+// stages and accumulators, which is why acc is not there; even so this
+// instance spills about 100 bytes at 128 registers.  A row with no kept
+// step writes zeros.
+//
 // The same kernel, instantiated with kStage, is the first pass of the
 // backward kernel (csrc/mlstm_bwd.cu): it also writes, for the k-th valid
 // step of batch row n, the step's previous h and c and its pre-activation
@@ -57,50 +70,27 @@
 // bf16, bring W_h tiles in with TMA, and share each tile between the
 // blocks of a cluster.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kPixelsPerThread = 8;    // PP
 constexpr int kMaxThreads = 512;
 
-__device__ __forceinline__ float sigmoid_f(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Copy rows [ch*kc, ch*kc + kc) of W_h (contiguous in memory) into `dst`.
 __device__ __forceinline__ void load_chunk(float* dst, const float* wh,
                                            int ch, int kc, int H) {
   const int k0 = ch * kc;
-  const int rows = min(kc, H - k0);
-  const float* src = wh + (size_t)k0 * 4 * H;
-  const int n16 = rows * H;                  // 16-byte pieces: rows*4H/4
-  for (int i = threadIdx.x; i < n16; i += blockDim.x) {
-    cp_async16(dst + 4 * i, src + 4 * i);
-  }
-  cp_async_commit();
+  load_rows(dst, wh, k0, min(kc, H - k0), 4 * H);
 }
 
-template <bool kStage>
+template <bool kStage, bool kAttn>
 __global__ void __launch_bounds__(kMaxThreads)
 mlstm_fwd_kernel(const float* __restrict__ pixel,   // [N, P, 4H]
                  const float* __restrict__ step,    // [N, T, 4H]
                  const float* __restrict__ wh,      // [H, 4H]
                  const int* __restrict__ valid,     // [N, T]
+                 const float* __restrict__ attn,    // [N, T] (kAttn)
                  float* __restrict__ out,           // [N, P, H] (!kStage)
                  float* __restrict__ stage_h,       // [N, T, P, H]  (kStage)
                  float* __restrict__ stage_c,       // [N, T, P, H]  (kStage)
@@ -213,6 +203,25 @@ mlstm_fwd_kernel(const float* __restrict__ pixel,   // [N, P, 4H]
         *reinterpret_cast<float2*>(h_nxt + (r0 + q) * H + u0) =
             make_float2(hn[0], hn[1]);
       }
+      if (kAttn) {                 // acc (+)= attn[n, t] * h_t, after the
+        const float a = attn[n * T + t];   // cell loop: the accumulators
+#pragma unroll                             // are dead by then
+        for (int q = 0; q < PP; ++q) {
+          const int p = p0 + r0 + q;
+          if (p >= P) continue;
+          const float2 h2 =
+              *reinterpret_cast<const float2*>(h_nxt + (r0 + q) * H + u0);
+          float2* o = reinterpret_cast<float2*>(out + ((size_t)n * P + p) * H
+                                                + u0);
+          float2 v = make_float2(a * h2.x, a * h2.y);
+          if (it >= n_chunks) {
+            const float2 prev = *o;
+            v.x += prev.x;
+            v.y += prev.y;
+          }
+          *o = v;
+        }
+      }
       float* tmp = h_cur;
       h_cur = h_nxt;
       h_nxt = tmp;
@@ -220,22 +229,24 @@ mlstm_fwd_kernel(const float* __restrict__ pixel,   // [N, P, 4H]
   }
 
   if constexpr (kStage) return;   // the staging pass writes no final h
+  if (kAttn && n_valid > 0) return;   // acc is written
   __syncthreads();
 #pragma unroll
   for (int q = 0; q < PP; ++q) {
     const int p = p0 + r0 + q;
-    if (p < P) {
+    if (p < P) {                       // the final h, or acc = 0 of a row
       *reinterpret_cast<float2*>(out + ((size_t)n * P + p) * H + u0) =
-          *reinterpret_cast<const float2*>(h_cur + (r0 + q) * H + u0);
+          kAttn ? make_float2(0.f, 0.f)   // without a kept step
+                : *reinterpret_cast<const float2*>(h_cur + (r0 + q) * H + u0);
     }
   }
 }
 
-template <bool kStage>
+template <bool kStage, bool kAttn>
 int launch(const float* pixel, const float* step, const float* wh,
-           const int* valid, float* out, float* stage_h, float* stage_c,
-           float* stage_g, int N, int P, int H, int T, int tile, int kc,
-           void* stream) {
+           const int* valid, const float* attn, float* out, float* stage_h,
+           float* stage_c, float* stage_g, int N, int P, int H, int T,
+           int tile, int kc, void* stream) {
   const int threads = (H / 2) * (tile / kPixelsPerThread);
   if (N <= 0 || P <= 0 || T <= 0 || H <= 0 || H % 4 != 0 ||
       tile % kPixelsPerThread != 0 || tile <= 0 || kc <= 0 || kc % 4 != 0 ||
@@ -244,14 +255,14 @@ int launch(const float* pixel, const float* step, const float* wh,
   }
   const size_t smem = (size_t)4 * H * (3 * tile + 8 * kc);
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_fwd_kernel<kStage>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      mlstm_fwd_kernel<kStage, kAttn>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((P + tile - 1) / tile, N);
-  mlstm_fwd_kernel<kStage>
+  mlstm_fwd_kernel<kStage, kAttn>
       <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          pixel, step, wh, valid, out, stage_h, stage_c, stage_g, P, H, T,
-          tile, kc);
+          pixel, step, wh, valid, attn, out, stage_h, stage_c, stage_g, P, H,
+          T, tile, kc);
   return (int)cudaGetLastError();
 }
 
@@ -265,8 +276,18 @@ extern "C" int mlstm_fwd(const float* pixel, const float* step,
                          const float* wh, const int* valid, float* out,
                          int N, int P, int H, int T, int tile, int kc,
                          void* stream) {
-  return launch<false>(pixel, step, wh, valid, out, nullptr, nullptr, nullptr,
-                       N, P, H, T, tile, kc, stream);
+  return launch<false, false>(pixel, step, wh, valid, nullptr, out, nullptr,
+                              nullptr, nullptr, N, P, H, T, tile, kc, stream);
+}
+
+// B3: acc = sum over kept steps of attn[n, t] * h_t [N, P, H]; the same
+// arguments plus attn [N, T].
+extern "C" int mlstm_attn_fwd(const float* pixel, const float* step,
+                              const float* wh, const int* valid,
+                              const float* attn, float* out, int N, int P,
+                              int H, int T, int tile, int kc, void* stream) {
+  return launch<false, true>(pixel, step, wh, valid, attn, out, nullptr,
+                             nullptr, nullptr, N, P, H, T, tile, kc, stream);
 }
 
 // The staging forward of the backward kernel (csrc/mlstm_bwd.cu): writes
@@ -276,6 +297,7 @@ extern "C" int mlstm_fwd_stage(const float* pixel, const float* step,
                                float* stage_h, float* stage_c, float* stage_g,
                                int N, int P, int H, int T, int tile, int kc,
                                void* stream) {
-  return launch<true>(pixel, step, wh, valid, nullptr, stage_h, stage_c,
-                      stage_g, N, P, H, T, tile, kc, stream);
+  return launch<true, false>(pixel, step, wh, valid, nullptr, nullptr,
+                             stage_h, stage_c, stage_g, N, P, H, T, tile, kc,
+                             stream);
 }

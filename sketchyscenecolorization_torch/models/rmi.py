@@ -9,9 +9,13 @@ channel; TF1 bilinear upsample to 768.
 
 The mLSTM's input projection is factored as in the JAX package
 (``rmi.py:150-154``): a pixel term computed once, a step term per word, and
-per step only ``h @ W_h``, which ``ops/mlstm.py`` runs (the CUDA kernel on
-the card).  Only the default fusion (``fusion_type='RMI'``,
-``use_attn=False``) with the DeepLab backbone is ported so far.
+per step only ``h @ W_h``, which ``ops/mlstm.py`` runs (the CUDA kernels on
+the card).  All three fusions of the JAX package are here: the default
+(``fusion_type='RMI'``), its word-attention variant (``use_attn=True``:
+the output is the attention-weighted sum of the per-step h,
+``ops/mlstm.attn_weighted_pixel_lstm``) and the recurrent-attention fusion
+(``fusion_type='RecurAttn'``, ``ops/recur_attn.py``).  Only the DeepLab
+backbone is ported.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ from ..ops.activations import atanh_transform
 from ..ops.conv import conv2d
 from ..ops.image import tf1_resize_bilinear
 from ..ops.lstm import masked_lstm_scan
-from ..ops.mlstm import masked_pixel_lstm
+from ..ops.mlstm import attn_weighted_pixel_lstm, masked_pixel_lstm
 from ..ops.norm import l2_normalize
+from ..ops.recur_attn import recur_attn_pixel_lstm
 from ..ops.spatial import generate_spatial_batch
 from .deeplab import DeepLabV2
 
@@ -58,7 +63,11 @@ class TextParams(nn.Module):
     def __init__(self, cfg, generator=None):
         super().__init__()
         g = generator
-        fusion_in = cfg.v_emb_dim + cfg.w_emb_dim + cfg.w_rnn_size + 8
+        if cfg.fusion_type == "RecurAttn":
+            # the mLSTM consumes the attended sentence vector
+            fusion_in = cfg.w_rnn_size
+        else:
+            fusion_in = cfg.v_emb_dim + cfg.w_emb_dim + cfg.w_rnn_size + 8
         self.visual_feat_projection = Leaves(
             DW=xavier_conv(cfg.v_emb_dim, cfg.vf_dim, 1, g),
             biases=torch.zeros(cfg.v_emb_dim))
@@ -72,6 +81,13 @@ class TextParams(nn.Module):
             b=torch.zeros(4 * cfg.m_rnn_size))
         self.m_lstm_output_projection = Leaves(
             DW=xavier_conv(1, cfg.m_rnn_size, 1, g), biases=torch.zeros(1))
+        if cfg.use_attn:
+            self.attn_fc = Leaves(DW=glorot((cfg.w_rnn_size, 1), g),
+                                  biases=torch.zeros(1))
+        if cfg.fusion_type == "RecurAttn":
+            self.h_proj = Leaves(
+                DW=glorot((cfg.m_rnn_size, cfg.w_rnn_size), g),
+                biases=torch.zeros(cfg.w_rnn_size))
 
 
 class RMIOutputs(NamedTuple):
@@ -83,10 +99,8 @@ class RMIOutputs(NamedTuple):
 class RMI(nn.Module):
     def __init__(self, cfg, generator=None):
         super().__init__()
-        if cfg.fusion_type != "RMI" or cfg.use_attn:
-            raise NotImplementedError(
-                "only fusion_type='RMI' with use_attn=False is ported; the "
-                "word-attention and RecurAttn fusions are ROADMAP item A10")
+        if cfg.fusion_type not in ("RMI", "RecurAttn"):
+            raise ValueError(f"unknown fusion_type {cfg.fusion_type!r}")
         if cfg.backbone != "deeplab":
             raise NotImplementedError(
                 f"backbone {cfg.backbone!r} is ROADMAP item A10")
@@ -134,8 +148,28 @@ class RMI(nn.Module):
         step_term = emb @ w_w + lang @ w_l + bm                  # [N, T, 4m]
         steps = torch.arange(t_max, device=seq_len.device)
         valid = steps[None, :] < seq_len[:, None]                # [N, T]
-        m_last = masked_pixel_lstm(pixel_term, step_term, w_h, valid)
+        if cfg.use_attn:
+            # word attention (JAX ``rmi.py:156-176``): softmax over ALL T
+            # of fc(lang); the pad rows of lang are l2_normalize(0) = 0, so
+            # their logit is the bias and they take weight
+            fc = self.text_sketchyscene.attn_fc
+            attn = torch.softmax((lang @ fc.DW)[..., 0] + fc.biases, dim=-1)
+            m_last = attn_weighted_pixel_lstm(pixel_term, step_term, w_h,
+                                              valid, attn)
+        else:
+            m_last = masked_pixel_lstm(pixel_term, step_term, w_h, valid)
         return m_last.reshape(n, h, w, cfg.m_rnn_size)
+
+    def _recur_attn_fusion(self, visual_norm, lang_out, words):
+        """Recurrent-attention fusion (JAX ``rmi.py:205-240``): h starts at
+        the visual features, attends over the RAW word-LSTM outputs each
+        step, and skips every step whose token is <pad> (``words != 0``)."""
+        n, h, w, v = visual_norm.shape
+        text = self.text_sketchyscene
+        m_last = recur_attn_pixel_lstm(
+            visual_norm.reshape(n, h * w, v), lang_out, text.h_proj.DW,
+            text.h_proj.biases, text.mLSTM.w, text.mLSTM.b, words != 0)
+        return m_last.reshape(n, h, w, self.cfg.m_rnn_size)
 
     def apply_fused(self, visual_norm: torch.Tensor, words: torch.Tensor,
                     seq_len: torch.Tensor) -> RMIOutputs:
@@ -151,8 +185,12 @@ class RMI(nn.Module):
         emb = text.embedding[words]                              # [N, T, e]
         w_out, _ = masked_lstm_scan(emb, seq_len, text.wLSTM.w,
                                     text.wLSTM.b, cfg.w_rnn_size)
-        lang = l2_normalize(w_out, dim=-1)
-        m_last = self._rmi_fusion(visual_norm, spatial, emb, lang, seq_len)
+        if cfg.fusion_type == "RMI":
+            lang = l2_normalize(w_out, dim=-1)
+            m_last = self._rmi_fusion(visual_norm, spatial, emb, lang,
+                                      seq_len)
+        else:
+            m_last = self._recur_attn_fusion(visual_norm, w_out, words)
         y = atanh_transform(m_last)
         proj = text.m_lstm_output_projection
         pred = conv2d(y, proj.DW) + proj.biases                  # [N, h, w, 1]

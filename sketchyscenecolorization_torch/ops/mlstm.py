@@ -8,15 +8,26 @@ After the input projection is factored (``models/rmi.py``), one step is
 
 with c and h frozen wherever the per-(batch, step) flag ``valid`` is 0.
 
-``masked_pixel_lstm`` is the entry point, an autograd function
-(``MaskedPixelLSTM``, the JAX custom VJP ``pallas_mlstm.py:936-970``).  A
-CPU tensor goes through the plain PyTorch versions, ``mlstm_plain`` and
-``mlstm_bwd_plain`` (the same functions as Python loops of
-``torch.matmul``, also the kernels' test oracles); a CUDA tensor goes
-through ``mlstm_cuda`` and ``mlstm_bwd_cuda``, which launch the
-hand-written kernels ``csrc/mlstm_fwd.cu`` (B1) and ``csrc/mlstm_bwd.cu``
-(B2) or raise.  Both sources are compiled by one ``nvcc`` call for sm_90a
-into ``build/kernels/`` at the repository root on first use and bound with
+Two entry points, both autograd functions:
+- ``masked_pixel_lstm`` (``MaskedPixelLSTM``, the JAX custom VJP
+  ``pallas_mlstm.py:936-970``) returns the final h;
+- ``attn_weighted_pixel_lstm`` (``AttnWeightedPixelLSTM``, JAX
+  ``pallas_mlstm.py:244-276``), the word-attention variant, returns
+  ``acc = sum_t attn[n, t] * h_t`` over the kept steps, and its backward
+  also gives d_attn.
+
+A CPU tensor goes through the plain PyTorch versions (``mlstm_plain``,
+``mlstm_bwd_plain``, ``mlstm_attn_plain``, ``mlstm_attn_bwd_plain``: the
+same functions as Python loops of ``torch.matmul``, also the kernels' test
+oracles); a CUDA tensor goes through ``mlstm_cuda``, ``mlstm_bwd_cuda``,
+``mlstm_attn_cuda`` and ``mlstm_attn_bwd_cuda``, which launch the
+hand-written kernels B1 and B3 (``csrc/mlstm_fwd.cu``) and B2 and B4
+(``csrc/mlstm_bwd.cu``) or raise.
+
+This module also builds and loads the one kernel library of the port:
+``SOURCES`` (these two files and the RecurAttn kernels B5 and B6 of
+``ops/recur_attn.py``) are compiled by one ``nvcc`` call for sm_90a into
+``build/kernels/`` at the repository root on first use and bound with
 ``ctypes``.
 """
 from __future__ import annotations
@@ -35,7 +46,9 @@ from .lstm import lstm_cell
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
-                for name in ("mlstm_fwd.cu", "mlstm_bwd.cu"))
+                for name in ("mlstm_fwd.cu", "mlstm_bwd.cu",
+                             "recur_attn_fwd.cu", "recur_attn_bwd.cu"))
+HEADERS = (os.path.join(_PKG_DIR, "csrc", "common.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 LIBRARY = os.path.join(BUILD_DIR, "libmlstm.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -45,9 +58,33 @@ MAX_HIDDEN = 1024
 SMEM_BYTES = 232448               # shared memory a block may use on sm_90
 DWH_TILE = 64                     # d_W_h output tile of csrc/mlstm_bwd.cu
 SMS = 132                         # streaming multiprocessors of an H100
+SWEEP_THREADS = 256               # most threads of a reverse-sweep block
 
 _lib = None
 _lib_lock = threading.Lock()
+
+
+def _fwd_plain(pixel_term, step_term, w_h, valid, attn=None, stages=None):
+    """The recurrence; returns the final h, or with ``attn`` the sum of
+    attn[n, t] * h_t over the kept steps.  A list passed as ``stages``
+    receives (h, c) before each step."""
+    n, p, four_h = pixel_term.shape
+    hidden = four_h // 4
+    keep = valid.bool()
+    c = pixel_term.new_zeros((n, p, hidden))
+    h = pixel_term.new_zeros((n, p, hidden))
+    acc = None if attn is None else pixel_term.new_zeros((n, p, hidden))
+    for t in range(step_term.shape[1]):
+        if stages is not None:
+            stages.append((h, c))
+        gates = pixel_term + step_term[:, t, None, :] + torch.matmul(h, w_h)
+        new_c, new_h = lstm_cell(gates, c)
+        k = keep[:, t, None, None]
+        c = torch.where(k, new_c, c)
+        h = torch.where(k, new_h, h)
+        if attn is not None:
+            acc = acc + torch.where(k, attn[:, t, None, None] * h, 0.0)
+    return h if attn is None else acc
 
 
 def mlstm_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
@@ -58,40 +95,36 @@ def mlstm_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
     """Plain PyTorch recurrence (``mlstm_scan``, JAX
     ``pallas_mlstm.py:118-140``); returns the final h [N, P, H].  A list
     passed as ``stages`` receives (h, c) before each step."""
-    n, p, four_h = pixel_term.shape
-    hidden = four_h // 4
-    keep = valid.bool()
-    c = pixel_term.new_zeros((n, p, hidden))
-    h = pixel_term.new_zeros((n, p, hidden))
-    for t in range(step_term.shape[1]):
-        if stages is not None:
-            stages.append((h, c))
-        gates = pixel_term + step_term[:, t, None, :] + torch.matmul(h, w_h)
-        new_c, new_h = lstm_cell(gates, c)
-        k = keep[:, t, None, None]
-        c = torch.where(k, new_c, c)
-        h = torch.where(k, new_h, h)
-    return h
+    return _fwd_plain(pixel_term, step_term, w_h, valid, stages=stages)
 
 
-def mlstm_bwd_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
-                    step_term: torch.Tensor,    # [N, T, 4H] f32
-                    w_h: torch.Tensor,          # [H, 4H] f32
-                    valid: torch.Tensor,        # [N, T] bool/int
-                    g: torch.Tensor,            # [N, P, H] dL/dh_final
-                    ):
-    """Plain PyTorch BPTT of ``mlstm_plain``: the algebra of the TPU kernel
-    ``_mlstm_bwd_kernel`` (JAX ``pallas_mlstm.py:778-862``).  Returns
-    (d_pixel [N, P, 4H], d_step [N, T, 4H], d_w_h [H, 4H])."""
-    four_h = pixel_term.shape[-1]
+def mlstm_attn_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
+                     step_term: torch.Tensor,    # [N, T, 4H] f32
+                     w_h: torch.Tensor,          # [H, 4H] f32
+                     valid: torch.Tensor,        # [N, T] bool/int
+                     attn: torch.Tensor,         # [N, T] f32
+                     ) -> torch.Tensor:
+    """Plain PyTorch word-attention recurrence (``mlstm_attn_scan``, JAX
+    ``pallas_mlstm.py:216-241``): acc [N, P, H] = the sum over kept steps
+    of attn[n, t] times the step's new h."""
+    return _fwd_plain(pixel_term, step_term, w_h, valid, attn=attn)
+
+
+def _bwd_plain(pixel_term, step_term, w_h, valid, g, attn=None):
+    """BPTT of ``_fwd_plain``: the algebra of the TPU kernels
+    ``_mlstm_bwd_kernel`` (``g`` is dL/dh_final) and, with ``attn``,
+    ``_mlstm_attn_bwd_kernel`` (``g`` is dL/dacc: dh starts at 0 and gains
+    attn[n, t] * g at every kept step, and d_attn[n, t] = <g, h_t>)."""
+    n, _, four_h = pixel_term.shape
     hidden = four_h // 4
     keep = valid.bool()
     stages = []
-    mlstm_plain(pixel_term, step_term, w_h, valid, stages)
+    _fwd_plain(pixel_term, step_term, w_h, valid, stages=stages)
     d_pixel = torch.zeros_like(pixel_term)
     d_step = torch.zeros_like(step_term)
     d_w_h = torch.zeros_like(w_h)
-    dh = g
+    d_attn = None if attn is None else torch.zeros_like(attn)
+    dh = g if attn is None else torch.zeros_like(g)
     dc = torch.zeros_like(g)
     for t in range(len(stages) - 1, -1, -1):
         k = keep[:, t, None, None]
@@ -102,6 +135,11 @@ def mlstm_bwd_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
         si, tj = torch.sigmoid(i), torch.tanh(j)
         sf, so = torch.sigmoid(f + 1.0), torch.sigmoid(o)
         tc = torch.tanh(c_prev * sf + si * tj)
+        if attn is not None:
+            h_t = so * tc                     # the step's new h, if kept
+            d_attn[:, t] = torch.where(keep[:, t],
+                                       (g * h_t).reshape(n, -1).sum(1), 0.0)
+            dh = dh + torch.where(k, attn[:, t, None, None] * g, 0.0)
         d_o = dh * tc * so * (1.0 - so)
         dct = dc + dh * so * (1.0 - tc * tc)
         d_f = dct * c_prev * sf * (1.0 - sf)
@@ -114,7 +152,34 @@ def mlstm_bwd_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
                               dgates.reshape(-1, four_h))
         dh = torch.where(k, torch.matmul(dgates, w_h.T), dh)
         dc = torch.where(k, dct * sf, dc)
-    return d_pixel, d_step, d_w_h
+    if attn is None:
+        return d_pixel, d_step, d_w_h
+    return d_pixel, d_step, d_w_h, d_attn
+
+
+def mlstm_bwd_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
+                    step_term: torch.Tensor,    # [N, T, 4H] f32
+                    w_h: torch.Tensor,          # [H, 4H] f32
+                    valid: torch.Tensor,        # [N, T] bool/int
+                    g: torch.Tensor,            # [N, P, H] dL/dh_final
+                    ):
+    """Plain PyTorch BPTT of ``mlstm_plain``: the algebra of the TPU kernel
+    ``_mlstm_bwd_kernel`` (JAX ``pallas_mlstm.py:778-862``).  Returns
+    (d_pixel [N, P, 4H], d_step [N, T, 4H], d_w_h [H, 4H])."""
+    return _bwd_plain(pixel_term, step_term, w_h, valid, g)
+
+
+def mlstm_attn_bwd_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
+                         step_term: torch.Tensor,    # [N, T, 4H] f32
+                         w_h: torch.Tensor,          # [H, 4H] f32
+                         valid: torch.Tensor,        # [N, T] bool/int
+                         attn: torch.Tensor,         # [N, T] f32
+                         g: torch.Tensor,            # [N, P, H] dL/dacc
+                         ):
+    """Plain PyTorch BPTT of ``mlstm_attn_plain``: the algebra of the TPU
+    kernel ``_mlstm_attn_bwd_kernel`` (JAX ``pallas_mlstm.py:279-360``).
+    Returns (d_pixel, d_step, d_w_h, d_attn [N, T])."""
+    return _bwd_plain(pixel_term, step_term, w_h, valid, g, attn=attn)
 
 
 def launch_geometry(hidden: int):
@@ -130,28 +195,35 @@ def launch_geometry(hidden: int):
     return tile, kc, threads, 4 * hidden * (3 * tile + 8 * kc)
 
 
+def product_splits(p: int, rows: int, cols: int) -> int:
+    """Pixel ranges of the tiled sum-of-outer-products kernel
+    (``csrc/common.cuh``, ``rows_product_kernel``) for a [rows, cols]
+    output: more than one when its 64x64 output tiles alone would give fewer
+    than 4 blocks per SM; each range writes a partial, summed in a fixed
+    order afterwards."""
+    blocks = -(-rows // DWH_TILE) * -(-cols // DWH_TILE)
+    return max(1, min(-(-4 * SMS // blocks), p // 128, 16))
+
+
 def bwd_geometry(p: int, hidden: int):
     """(tile, kc, threads, shared-memory bytes, splits) of the backward
     kernel's reverse sweep and d_W_h product (``csrc/mlstm_bwd.cu``): each
-    thread owns 4 units of 8 pixels; shared memory holds the tile's dgates
-    and two chunks of kc rows of W_h^T.  ``splits`` cuts the pixels into
-    ranges for the d_W_h product when its 64x64 output tiles alone would
-    give fewer than 4 blocks per SM."""
+    thread owns 4 units of 8 pixels; shared memory holds the tile's dgates,
+    two chunks of kc rows of W_h^T and a block-reduction buffer (d_attn of
+    the word-attention variant).  ``splits``: ``product_splits``."""
     launch_geometry(hidden)         # the staging forward's limits
     tile, kc = (16, 16) if hidden <= 512 else (8, 8)
     threads = hidden // 4 * tile // 8
-    smem = 4 * (tile * 4 * hidden + 2 * kc * hidden)
-    blocks = -(-hidden // DWH_TILE) * -(-4 * hidden // DWH_TILE)
-    splits = max(1, min(-(-4 * SMS // blocks), p // 128, 16))
-    return tile, kc, threads, smem, splits
+    smem = 4 * (tile * 4 * hidden + 2 * kc * hidden + SWEEP_THREADS)
+    return tile, kc, threads, smem, product_splits(p, hidden, 4 * hidden)
 
 
 def build() -> str:
-    """Compile ``csrc/mlstm_fwd.cu`` and ``csrc/mlstm_bwd.cu`` into one
-    library for sm_90a (unless it is newer than both sources) and return
-    nvcc's report (registers, spills)."""
+    """Compile ``SOURCES`` into one library for sm_90a (unless it is newer
+    than every source and header) and return nvcc's report (registers,
+    spills)."""
     if os.path.isfile(LIBRARY) and os.path.getmtime(LIBRARY) >= max(
-            os.path.getmtime(src) for src in SOURCES):
+            os.path.getmtime(src) for src in SOURCES + HEADERS):
         return ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -169,79 +241,110 @@ def build() -> str:
     return proc.stdout + proc.stderr
 
 
-def _library() -> ctypes.CDLL:
+# C entry points of the library: (number of pointer arguments, number of
+# int arguments); each then takes the stream and returns a cudaError_t.
+_ENTRIES = {"mlstm_fwd": (5, 6), "mlstm_attn_fwd": (6, 6),
+            "mlstm_bwd": (13, 9), "mlstm_attn_bwd": (16, 9),
+            "recur_attn_fwd": (8, 6), "recur_attn_bwd": (25, 8)}
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built on first use."""
     global _lib
     with _lib_lock:
         if _lib is None:
             build()
             lib = ctypes.CDLL(LIBRARY)
-            lib.mlstm_fwd.argtypes = [ctypes.c_void_p] * 5 + \
-                [ctypes.c_int] * 6 + [ctypes.c_void_p]
-            lib.mlstm_fwd.restype = ctypes.c_int
-            lib.mlstm_bwd.argtypes = [ctypes.c_void_p] * 13 + \
-                [ctypes.c_int] * 9 + [ctypes.c_void_p]
-            lib.mlstm_bwd.restype = ctypes.c_int
+            for name, (n_ptr, n_int) in _ENTRIES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = [ctypes.c_void_p] * n_ptr + \
+                    [ctypes.c_int] * n_int + [ctypes.c_void_p]
+                fn.restype = ctypes.c_int
             _lib = lib
     return _lib
 
 
-def _check_cuda_inputs(name: str, pixel_term, step_term, w_h, valid,
-                       g=None):
-    """Device, dtype, contiguity, alignment and shape checks of the kernel
-    wrappers; returns (N, P, H, T)."""
-    tensors = (pixel_term, step_term, w_h, valid) + (() if g is None else (g,))
-    floats = tensors[:3] + tensors[4:]
-    dev = pixel_term.device
+def launch(name: str, device, *args) -> None:
+    """Call the library's ``name`` with ``args`` (tensors as their data
+    pointers, None as a null pointer) on the current stream of ``device``;
+    raises if the launch was refused."""
+    fn = getattr(library(), name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a
+                   for a in args), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def check_cuda_tensors(name: str, floats, ints=()) -> None:
+    """Device, dtype, contiguity and alignment checks of the kernel
+    wrappers: ``floats`` f32 and 16-byte aligned, ``ints`` int32, all
+    contiguous on one CUDA device."""
+    tensors = (*floats, *ints)
+    dev = tensors[0].device
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
         raise ValueError(f"{name}: all inputs must be on one CUDA device, "
                          f"got {[str(x.device) for x in tensors]}")
     if any(x.dtype != torch.float32 for x in floats) \
-            or valid.dtype != torch.int32:
-        raise TypeError(f"{name}: pixel/step/w_h/g must be float32 and "
-                        f"valid int32, got {[x.dtype for x in tensors]}")
+            or any(x.dtype != torch.int32 for x in ints):
+        raise TypeError(f"{name}: expected float32 tensors and int32 "
+                        f"flags, got {[x.dtype for x in tensors]}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: inputs must be contiguous, got strides "
                          f"{[x.stride() for x in tensors]}")
     if any(x.data_ptr() % 16 for x in floats):
-        raise ValueError(f"{name}: pixel/step/w_h/g must be 16-byte aligned")
+        raise ValueError(f"{name}: float inputs must be 16-byte aligned")
+
+
+def _check_cuda_inputs(name: str, pixel_term, step_term, w_h, valid,
+                       g=None, attn=None):
+    """Checks of the kernel wrappers; returns (N, P, H, T)."""
+    extra = tuple(x for x in (g, attn) if x is not None)
+    check_cuda_tensors(name, (pixel_term, step_term, w_h) + extra, (valid,))
     if pixel_term.dim() != 3 or step_term.dim() != 3 or w_h.dim() != 2:
         raise ValueError(f"{name}: expected pixel [N,P,4H], step [N,T,4H], "
-                         "w_h [H,4H], valid [N,T], g [N,P,H]")
+                         "w_h [H,4H], valid [N,T], g [N,P,H], attn [N,T]")
     n, p, four_h = pixel_term.shape
     hidden = four_h // 4
     t_max = step_term.shape[1]
     if (four_h != 4 * hidden or step_term.shape != (n, t_max, four_h)
             or w_h.shape != (hidden, four_h) or valid.shape != (n, t_max)
-            or (g is not None and g.shape != (n, p, hidden))):
+            or (g is not None and g.shape != (n, p, hidden))
+            or (attn is not None and attn.shape != (n, t_max))):
         raise ValueError(
             f"{name}: shape mismatch: pixel {tuple(pixel_term.shape)}, step "
             f"{tuple(step_term.shape)}, w_h {tuple(w_h.shape)}, valid "
             f"{tuple(valid.shape)}"
-            + ("" if g is None else f", g {tuple(g.shape)}"))
+            + ("" if g is None else f", g {tuple(g.shape)}")
+            + ("" if attn is None else f", attn {tuple(attn.shape)}"))
     if min(n, p, t_max) == 0 or max(n, t_max) > 65535:
         raise ValueError(f"{name}: unsupported sizes N={n} P={p} T={t_max}")
     return n, p, hidden, t_max
 
 
+def _fwd_cuda(pixel_term, step_term, w_h, valid, attn=None):
+    name = "mlstm_cuda" if attn is None else "mlstm_attn_cuda"
+    n, p, hidden, t_max = _check_cuda_inputs(name, pixel_term, step_term,
+                                             w_h, valid, attn=attn)
+    tile, kc, _, _ = launch_geometry(hidden)
+    out = torch.empty((n, p, hidden), dtype=torch.float32,
+                      device=pixel_term.device)
+    head = (pixel_term, step_term, w_h, valid)
+    if attn is not None:
+        head += (attn,)
+    launch("mlstm_fwd" if attn is None else "mlstm_attn_fwd",
+           pixel_term.device, *head, out, n, p, hidden, t_max, tile, kc)
+    return out
+
+
 def mlstm_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
                w_h: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/mlstm_fwd.cu`` on the current stream.  Takes f32
+    """Launch ``csrc/mlstm_fwd.cu`` (B1) on the current stream.  Takes f32
     pixel/step/W_h and int32 ``valid``, contiguous and 16-byte aligned on one
     CUDA device, H a multiple of 4 up to 1024; raises on anything else.
     ``mlstm_cuda.launches`` counts launches."""
-    n, p, hidden, t_max = _check_cuda_inputs("mlstm_cuda", pixel_term,
-                                             step_term, w_h, valid)
-    dev = pixel_term.device
-    tile, kc, _, _ = launch_geometry(hidden)
-    lib = _library()
-    out = torch.empty((n, p, hidden), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mlstm_fwd(pixel_term.data_ptr(), step_term.data_ptr(),
-                            w_h.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                            n, p, hidden, t_max, tile, kc, stream)
-    if err != 0:
-        raise RuntimeError(f"mlstm_fwd launch failed: cudaError {err}")
+    out = _fwd_cuda(pixel_term, step_term, w_h, valid)
     mlstm_cuda.launches += 1
     return out
 
@@ -249,19 +352,27 @@ def mlstm_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
 mlstm_cuda.launches = 0
 
 
-def mlstm_bwd_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
-                   w_h: torch.Tensor, valid: torch.Tensor, g: torch.Tensor):
-    """Launch ``csrc/mlstm_bwd.cu`` on the current stream: (d_pixel, d_step,
-    d_w_h) of the final h.  Takes what ``mlstm_cuda`` takes plus f32 ``g``
-    [N, P, H]; raises on anything else.  Allocates the scratch the kernel
-    stages into (``stage_h``/``stage_c`` [N, T, P, H], ``stage_g``
-    [N, T, P, 4H], W_h^T, the d_W_h partials).  ``mlstm_bwd_cuda.launches``
-    counts launches."""
-    n, p, hidden, t_max = _check_cuda_inputs("mlstm_bwd_cuda", pixel_term,
-                                             step_term, w_h, valid, g)
+def mlstm_attn_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
+                    w_h: torch.Tensor, valid: torch.Tensor,
+                    attn: torch.Tensor) -> torch.Tensor:
+    """Launch B3, the word-attention instance of ``csrc/mlstm_fwd.cu``:
+    acc [N, P, H].  Takes what ``mlstm_cuda`` takes plus f32 ``attn``
+    [N, T]; raises on anything else.  ``mlstm_attn_cuda.launches`` counts
+    launches."""
+    out = _fwd_cuda(pixel_term, step_term, w_h, valid, attn)
+    mlstm_attn_cuda.launches += 1
+    return out
+
+
+mlstm_attn_cuda.launches = 0
+
+
+def _bwd_cuda(pixel_term, step_term, w_h, valid, g, attn=None):
+    name = "mlstm_bwd_cuda" if attn is None else "mlstm_attn_bwd_cuda"
+    n, p, hidden, t_max = _check_cuda_inputs(name, pixel_term, step_term,
+                                             w_h, valid, g, attn)
     f_tile, f_kc, _, _ = launch_geometry(hidden)
     tile, kc, _, _, splits = bwd_geometry(p, hidden)
-    lib = _library()
     four_h = 4 * hidden
 
     def empty(*shape):
@@ -270,26 +381,54 @@ def mlstm_bwd_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
 
     d_pixel, d_step, d_w_h = empty(n, p, four_h), empty(n, t_max, four_h), \
         empty(hidden, four_h)
-    w_t = empty(four_h, hidden)
-    stage_h, stage_c = empty(n, t_max, p, hidden), empty(n, t_max, p, hidden)
-    stage_g = empty(n, t_max, p, four_h)
-    partials = empty(splits, hidden, four_h) if splits > 1 else None
-    with torch.cuda.device(pixel_term.device):
-        stream = torch.cuda.current_stream(pixel_term.device).cuda_stream
-        err = lib.mlstm_bwd(
-            pixel_term.data_ptr(), step_term.data_ptr(), w_h.data_ptr(),
-            valid.data_ptr(), g.data_ptr(), d_pixel.data_ptr(),
-            d_step.data_ptr(), d_w_h.data_ptr(), w_t.data_ptr(),
-            stage_h.data_ptr(), stage_c.data_ptr(), stage_g.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            n, p, hidden, t_max, f_tile, f_kc, tile, kc, splits, stream)
-    if err != 0:
-        raise RuntimeError(f"mlstm_bwd launch failed: cudaError {err}")
+    scratch = (empty(four_h, hidden),                       # W_h^T
+               empty(n, t_max, p, hidden), empty(n, t_max, p, hidden),
+               empty(n, t_max, p, four_h),                  # staged h, c, g
+               empty(splits, hidden, four_h) if splits > 1 else None)
+    sizes = (n, p, hidden, t_max, f_tile, f_kc, tile, kc, splits)
+    if attn is None:
+        launch("mlstm_bwd", pixel_term.device, pixel_term, step_term, w_h,
+               valid, g, d_pixel, d_step, d_w_h, *scratch, *sizes)
+        return d_pixel, d_step, d_w_h
+    d_attn = empty(n, t_max)
+    attn_partials = empty(n, t_max, -(-p // tile))
+    launch("mlstm_attn_bwd", pixel_term.device, pixel_term, step_term, w_h,
+           valid, attn, g, d_pixel, d_step, d_w_h, d_attn, *scratch,
+           attn_partials, *sizes)
+    return d_pixel, d_step, d_w_h, d_attn
+
+
+def mlstm_bwd_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
+                   w_h: torch.Tensor, valid: torch.Tensor, g: torch.Tensor):
+    """Launch ``csrc/mlstm_bwd.cu`` (B2) on the current stream: (d_pixel,
+    d_step, d_w_h) of the final h.  Takes what ``mlstm_cuda`` takes plus
+    f32 ``g`` [N, P, H]; raises on anything else.  Allocates the scratch the
+    kernel stages into (``stage_h``/``stage_c`` [N, T, P, H], ``stage_g``
+    [N, T, P, 4H], W_h^T, the d_W_h partials).  ``mlstm_bwd_cuda.launches``
+    counts launches."""
+    grads = _bwd_cuda(pixel_term, step_term, w_h, valid, g)
     mlstm_bwd_cuda.launches += 1
-    return d_pixel, d_step, d_w_h
+    return grads
 
 
 mlstm_bwd_cuda.launches = 0
+
+
+def mlstm_attn_bwd_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
+                        w_h: torch.Tensor, valid: torch.Tensor,
+                        attn: torch.Tensor, g: torch.Tensor):
+    """Launch B4, the word-attention instance of ``csrc/mlstm_bwd.cu``:
+    (d_pixel, d_step, d_w_h, d_attn [N, T]) of acc.  Takes what
+    ``mlstm_attn_cuda`` takes plus f32 ``g`` [N, P, H]; raises on anything
+    else.  Allocates ``mlstm_bwd_cuda``'s scratch and the per-tile d_attn
+    partials [N, T, tiles].  ``mlstm_attn_bwd_cuda.launches`` counts
+    launches."""
+    grads = _bwd_cuda(pixel_term, step_term, w_h, valid, g, attn)
+    mlstm_attn_bwd_cuda.launches += 1
+    return grads
+
+
+mlstm_attn_bwd_cuda.launches = 0
 
 
 class MaskedPixelLSTM(torch.autograd.Function):
@@ -327,3 +466,46 @@ def masked_pixel_lstm(pixel_term: torch.Tensor, step_term: torch.Tensor,
     save = torch.is_grad_enabled() and any(
         x.requires_grad for x in (pixel_term, step_term, w_h))
     return MaskedPixelLSTM.apply(pixel_term, step_term, w_h, valid, save)
+
+
+class AttnWeightedPixelLSTM(torch.autograd.Function):
+    """The word-attention recurrence with its BPTT (JAX custom VJP
+    ``pallas_mlstm.py:244-276``): forward by ``mlstm_attn_plain`` (CPU) or
+    kernel B3 (CUDA), backward by ``mlstm_attn_bwd_plain`` (CPU) or kernel
+    B4 (CUDA), which also gives d_attn; autograd carries it back through
+    the softmax and ``attn_fc`` that made ``attn``.  ``valid`` gets no
+    gradient; with ``save`` false nothing is kept for the backward."""
+
+    @staticmethod
+    def forward(ctx, pixel_term, step_term, w_h, valid, attn, save):
+        args = (pixel_term.contiguous(), step_term.contiguous(),
+                w_h.contiguous(), valid.to(torch.int32).contiguous(),
+                attn.contiguous())
+        if save:
+            ctx.save_for_backward(*args)
+        if pixel_term.device.type == "cpu":
+            return mlstm_attn_plain(*args)
+        return mlstm_attn_cuda(*args)
+
+    @staticmethod
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        if args[0].device.type == "cpu":
+            d_pixel, d_step, d_w_h, d_attn = mlstm_attn_bwd_plain(*args, g)
+        else:
+            d_pixel, d_step, d_w_h, d_attn = mlstm_attn_bwd_cuda(
+                *args, g.contiguous())
+        return d_pixel, d_step, d_w_h, None, d_attn, None
+
+
+def attn_weighted_pixel_lstm(pixel_term: torch.Tensor,
+                             step_term: torch.Tensor, w_h: torch.Tensor,
+                             valid: torch.Tensor,
+                             attn: torch.Tensor) -> torch.Tensor:
+    """acc [N, P, H] = sum over kept steps of attn[n, t] * h_t,
+    differentiable in pixel_term, step_term, w_h and attn (JAX
+    ``attn_weighted_pixel_lstm``, ``pallas_mlstm.py:245``)."""
+    save = torch.is_grad_enabled() and any(
+        x.requires_grad for x in (pixel_term, step_term, w_h, attn))
+    return AttnWeightedPixelLSTM.apply(pixel_term, step_term, w_h, valid,
+                                       attn, save)

@@ -1,6 +1,7 @@
 """The port imports nothing of the JAX package: with ``jax`` and
-``sketchyscenecolorization_tpu`` both blocked it imports (the CLIs
-included), builds a small session and takes one matching train step.  Its
+``sketchyscenecolorization_tpu`` both blocked it imports (the CLIs and the
+RecurAttn op included), builds a small session, takes one matching train
+step and runs the word-attention and RecurAttn fusions once.  Its
 own copies of the JAX package's jax-free modules (``config``, ``text``,
 ``data``) agree with the originals."""
 import dataclasses
@@ -28,6 +29,7 @@ SCRIPT = textwrap.dedent("""
     import torch
     import sketchyscenecolorization_torch.cli
     import sketchyscenecolorization_torch.cli_matching
+    import sketchyscenecolorization_torch.ops.recur_attn
     from sketchyscenecolorization_torch.config import (
         FGGanConfig, FrameworkConfig, MatchingConfig, PipelineConfig)
     from sketchyscenecolorization_torch.models.rmi import RMI
@@ -52,6 +54,12 @@ SCRIPT = textwrap.dedent("""
         "target_mask": torch.ones(1, 32, 32, 1)}
     state, metrics = make_matching_train_step(matching)(state, batch)
     assert state.step == 1 and np.isfinite(float(metrics["cost"]))
+    for variant in (dict(use_attn=True), dict(fusion_type="RecurAttn")):
+        kw = dict(matching.__dict__, **variant)
+        with torch.no_grad():
+            up = RMI(MatchingConfig(**kw))(batch["image"], batch["words"].long(),
+                                           batch["seq_len"].long()).up
+        assert up.shape == (1, 32, 32, 1) and torch.isfinite(up).all()
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "sketchyscenecolorization_tpu")
