@@ -15,7 +15,11 @@ and prints no result):
      shapes (max-abs error on h <= 1e-4) and time both;
   4. hold B2 against ``mlstm_bwd_plain`` at the same shapes (max-abs error
      of each gradient <= 1e-4 of its largest magnitude), check that two
-     launches agree bit for bit, and time both;
+     launches agree bit for bit, and time both against its f32 and 3xTF32
+     tensor-core bounds; profile one B2 call at the RMI shape by launch
+     kind (layout, staging forward, sweep, d_W_h, d_step); count the HMMA
+     (tensor-core) instructions of B2/B4's kernels in the built library
+     with ``cuobjdump -sass`` and check that they have no float atomics;
   5. run the same FG instruction sequence through a CUDA session and a CPU
      session (plain PyTorch path) on a small synthetic scene, with the same
      seeded parameters and noise: records byte-equal, matched instances
@@ -58,6 +62,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -69,7 +74,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TOL = 1e-4          # max-abs error of B1's h against mlstm_plain
 BWD_TOL = 1e-4      # B2's max-abs error over the gradient's max magnitude
 IMAGE_ID = 1
-F32_FLOPS = 67e12   # H100 SXM: f32 on the CUDA cores, and HBM3 bytes/s
+F32_FLOPS = 67e12   # H100 SXM: f32 on the CUDA cores, TF32 on the tensor
+TF32_FLOPS = 495e12  # cores (dense), and HBM3 bytes/s
 HBM_BYTES = 3.35e12
 TRAIN_STEPS, RESUME_STEPS = 6, 2
 PROFILED_STEP = 5   # the full-width training step traced by torch.profiler
@@ -166,10 +172,12 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    """(bound ms, what bounds it): the larger of the operations over the f32
-    peak and the compulsory bytes over the HBM rate."""
-    t_ops, t_bytes = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+def bound(flops: float, nbytes: float, tc_flops: float = 0.0):
+    """(bound ms, what bounds it): the larger of the operations (``flops``
+    over the f32 peak plus ``tc_flops``, TF32 tensor-core operations, over
+    the TF32 peak) and the compulsory bytes over the HBM rate."""
+    t_ops = (flops / F32_FLOPS + tc_flops / TF32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -183,15 +191,19 @@ def fwd_bound(n, p, hid, t, n_valid):
     return bound(flops, nbytes)
 
 
-def bwd_bound(n, p, hid, t, n_valid):
+def bwd_bound(n, p, hid, t, n_valid, tensor_cores=False):
     """B2: per batch row three products at every valid step after the
     first: the recomputed forward h @ W_h, dh = dgates @ W_h^T and
     h_prev^T dgates for d_W_h (at the first valid step h_prev = 0 and no
     dh flows further back); inputs (pixel, step, W_h, valid, g) read once,
-    the three gradients written once."""
+    the three gradients written once.  In f32 on the CUDA cores, or with
+    ``tensor_cores`` at the precision the kernel runs: 3xTF32, three TF32
+    products per f32 product."""
     flops = 2 * p * hid * 4 * hid * 3 * max(n_valid - 1, 0) * n
     nbytes = 4 * (2 * n * p * 4 * hid + 2 * n * t * 4 * hid
                   + 2 * hid * 4 * hid + n * t + n * p * hid)
+    if tensor_cores:
+        return bound(0.0, nbytes, 3 * flops)
     return bound(flops, nbytes)
 
 
@@ -221,9 +233,7 @@ FUSION_KERNELS = {"": ("mlstm_fwd", "mlstm_bwd"),
 # device kernels (profiler names) of each variant's forward and backward
 SHARED_BWD = ("rows_product", "column_sums", "sum_rows", "transpose_kernel")
 PROFILE_NAMES = {
-    "attn": (("mlstm_fwd_kernel<false, true>",),
-             ("mlstm_bwd_sweep_kernel<true>", "attn_sum",
-              "mlstm_fwd_kernel<true, false>") + SHARED_BWD),
+    "attn": (("mlstm_fwd_kernel<true>",), ("mlstm_bwd_",)),
     "recur": (("recur_attn_fwd_kernel<false>",),
               ("recur_attn_sweep", "recur_attn_fwd_kernel<true>")
               + SHARED_BWD)}
@@ -242,15 +252,19 @@ def attn_fwd_bound(n, p, hid, t, rows):
     return bound(flops, nbytes)
 
 
-def attn_bwd_bound(n, p, hid, t, rows):
-    """B4: B2's three products per kept step after the first, plus d_attn's
-    P*H multiply-adds at every kept step; inputs (pixel, step, W_h, valid,
-    attn, g) read once, the four gradients written once."""
-    flops = sum(2 * p * hid * 4 * hid * 3 * max(k - 1, 0) + 2 * p * hid * k
-                for k in _kept(rows))
+def attn_bwd_bound(n, p, hid, t, rows, tensor_cores=False):
+    """B4: B2's three products per kept step after the first (with
+    ``tensor_cores`` in 3xTF32, as ``bwd_bound``), plus d_attn's P*H
+    multiply-adds at every kept step in f32; inputs (pixel, step, W_h,
+    valid, attn, g) read once, the four gradients written once."""
+    products = sum(2 * p * hid * 4 * hid * 3 * max(k - 1, 0)
+                   for k in _kept(rows))
+    flops = sum(2 * p * hid * k for k in _kept(rows))
     nbytes = 4 * (2 * n * p * 4 * hid + 2 * n * t * 4 * hid
                   + 2 * hid * 4 * hid + 3 * n * t + n * p * hid)
-    return bound(flops, nbytes)
+    if tensor_cores:
+        return bound(flops, nbytes, 3 * products)
+    return bound(flops + products, nbytes)
 
 
 def recur_fwd_bound(n, p, hid, t, rows):
@@ -354,15 +368,109 @@ def check_bwd_kernel(mlstm):
                           for f in (plain, kernel, kernel, plain))
         results[name] = (abs_err, rel_err, (k1 + k2) / 2, (p1 + p2) / 2)
         b_ms, b_by = bwd_bound(n, p, hid, t, n_valid)
+        tc_ms, _ = bwd_bound(n, p, hid, t, n_valid, tensor_cores=True)
         log(f"B2 vs plain [{name}: N={n} P={p} H={hid} T={t}, {n_valid} "
             f"valid]: bitwise repeatable, max error {rel_err:.2e} of "
             f"max|plain| (tol {BWD_TOL:.0e}), kernel {results[name][2]:.3f} "
-            f"ms, plain {results[name][3]:.3f} ms, bound {b_ms:.3f} ms "
-            f"({b_by}); kernel order plain, kernel, kernel, plain: "
+            f"ms, plain {results[name][3]:.3f} ms, bound f32 {b_ms:.3f} ms "
+            f"({b_by}), 3xTF32 {tc_ms:.3f} ms: {tc_ms / results[name][2]:.1%}"
+            f" of it; order plain, kernel, kernel, plain: "
             f"{p1:.3f} {k1:.3f} {k2:.3f} {p2:.3f}")
         del args, got, again, want
         torch.cuda.empty_cache()
     return results
+
+
+# launch kinds of B2/B4 (csrc/mlstm_bwd.cu) by kernel-name prefix
+BWD_KINDS = {"layout": ("mlstm_bwd_slots", "mlstm_bwd_layout"),
+             "staging forward": ("mlstm_bwd_stage",),
+             "sweep": ("mlstm_bwd_sweep",),
+             "d_W_h": ("mlstm_bwd_dwh",),
+             "d_step": ("mlstm_bwd_step_sums",),
+             "d_attn": ("mlstm_bwd_attn",)}
+# its kernels that run products on the tensor cores
+BWD_PRODUCTS = ("mlstm_bwd_stage", "mlstm_bwd_sweep", "mlstm_bwd_dwh_kernel")
+
+
+def profile_bwd_call(mlstm):
+    """One B2 call at the RMI shape under ``torch.profiler``: device ms and
+    launches by launch kind (BWD_KINDS); returns {kind: (ms, launches)}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    name, n, p, hid, t, n_valid, front = SHAPES[0]
+    args = shape_inputs(n, p, hid, t, n_valid, front)
+    mlstm.mlstm_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        mlstm.mlstm_bwd_cuda(*args)
+        torch.cuda.synchronize()
+    kinds = {kind: [0.0, 0] for kind in BWD_KINDS}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        if us <= 0 or getattr(ev, "device_type", None) == \
+                torch.autograd.DeviceType.CPU:
+            continue
+        for kind, prefixes in BWD_KINDS.items():
+            if any(pre in ev.key for pre in prefixes):
+                kinds[kind][0] += us / 1e3
+                kinds[kind][1] += ev.count
+    total = sum(ms for ms, _ in kinds.values())
+    if kinds["sweep"][0] <= 0 or kinds["staging forward"][0] <= 0:
+        raise AssertionError(f"torch.profiler saw no B2 kernels: {kinds}")
+    log(f"B2 at {name} by launch kind (torch.profiler, one call, device "
+        f"{total:.3f} ms): "
+        + ", ".join(f"{k} {ms:.3f} ms / {c} launches"
+                    for k, (ms, c) in kinds.items() if c))
+    # per launch, in launch order: slot ranks 0..T-1 of the staging forward
+    # (no product at 0), T-1..0 of the sweep (no product at the last kept
+    # slot); ranks past the kept steps exit at once
+    for kind in ("staging forward", "sweep"):
+        runs = sorted((ev.time_range.start, ev.time_range.elapsed_us())
+                      for ev in prof.events()
+                      if ev.device_type != torch.autograd.DeviceType.CPU
+                      and any(pre in ev.name for pre in BWD_KINDS[kind]))
+        log(f"  {kind} per launch (us): "
+            + " ".join(f"{us:.1f}" for _, us in runs))
+    del args
+    torch.cuda.empty_cache()
+    return {k: tuple(v) for k, v in kinds.items()}
+
+
+def sass_counts(library: str):
+    """{kernel name: (HMMA, float atomics)} of B2/B4's kernels in the built
+    library, from ``cuobjdump -sass``; raises unless every product kernel
+    (BWD_PRODUCTS) runs HMMA and no B2/B4 kernel has a float atomic."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            fn = fn if "mlstm_bwd_" in fn else None
+            if fn:
+                counts[fn] = [0, 0]
+        elif fn:
+            counts[fn][0] += "HMMA" in line
+            counts[fn][1] += any(op in line for op in ("ATOM", "RED.")) \
+                and ".F32" in line
+    for prefix in BWD_PRODUCTS:
+        hits = [c[0] for f, c in counts.items() if prefix in f]
+        if not hits or min(hits) == 0:
+            raise AssertionError(f"no HMMA in {prefix}: {counts}")
+    if any(c[1] for c in counts.values()):
+        raise AssertionError(f"float atomics in B2/B4: {counts}")
+    def short(mangled):
+        m = re.search(r"\d(mlstm_bwd_[a-z]+_kernel)(?:ILb([01])E)?", mangled)
+        return m.group(1) + {"0": "<false>", "1": "<true>"}.get(
+            m.group(2), "") if m else mangled
+    log("SASS of B2/B4 (cuobjdump -sass): HMMA per kernel "
+        + ", ".join(f"{short(f)} {c[0]}" for f, c in sorted(counts.items())
+                    if c[0]) + "; no float atomics")
+    return counts
 
 
 def variant_inputs(kind, n, p, hid, t, rows):
@@ -447,13 +555,18 @@ def check_variant_kernels(kind):
                (bk1 + bk2) / 2, (bp1 + bp2) / 2)
         results[name] = res
         (fb, fby), (bb, bby) = (f(n, p, hid, t, rows) for f in bounds)
+        tc = ""
+        if kind == "attn":
+            tc_ms, _ = attn_bwd_bound(n, p, hid, t, rows, tensor_cores=True)
+            tc = f", 3xTF32 bound {tc_ms:.3f} ms: {tc_ms / res[5]:.1%} of it"
         log(f"{labels[0]}/{labels[1]} vs plain [{name}: N={n} P={p} H={hid} "
             f"T={t}, kept steps {_kept(rows)}]: {labels[0]} max_abs_err "
             f"{err:.3e} (tol {TOL:.0e}), kernel {res[1]:.3f} ms, plain "
             f"{res[2]:.3f} ms, bound {fb:.3f} ms ({fby}); {labels[1]} "
             f"bitwise repeatable, max error {rel_err:.2e} of max|plain| (tol "
             f"{BWD_TOL:.0e}), kernel {res[5]:.3f} ms, plain {res[6]:.3f} ms, "
-            f"bound {bb:.3f} ms ({bby}); order plain, kernel, kernel, plain: "
+            f"bound {bb:.3f} ms ({bby}){tc}; order plain, kernel, kernel, "
+            f"plain: "
             f"{fp1:.3f} {fk1:.3f} {fk2:.3f} {fp2:.3f} / {bp1:.3f} {bk1:.3f} "
             f"{bk2:.3f} {bp2:.3f}")
         del args, dout
@@ -851,7 +964,8 @@ def full_width_training(mlstm):
                 wall = time.perf_counter() - t0
             records.append((wall, mlstm.mlstm_cuda.launches - fwd,
                             mlstm.mlstm_bwd_cuda.launches - bwd,
-                            float(metrics["cost"]), float(metrics["cls_loss"])))
+                            float(metrics["cost"]), float(metrics["cls_loss"]),
+                            int((batch["words"] != 0).sum())))
             return state, metrics
         return timed
 
@@ -876,7 +990,7 @@ def full_width_training(mlstm):
             TRAIN_STEPS + RESUME_STEPS:
         raise AssertionError(f"snapshots: {first} after the first run, "
                              f"{last} after the resumed run")
-    for i, (_, fwd, bwd, cost, cls) in enumerate(records):
+    for i, (_, fwd, bwd, cost, cls, _) in enumerate(records):
         if fwd < 1 or bwd < 1 or not np.isfinite([cost, cls]).all():
             raise AssertionError(f"step {i + 1}: {fwd} B1 and {bwd} B2 "
                                  f"launches, cost {cost}, cls_loss {cls}")
@@ -901,19 +1015,18 @@ def full_width_training(mlstm):
             (0, TRAIN_STEPS, PROFILED_STEP - 1)]
     kernels = profiled["kernels"]
     total = sum(kernels.values())
-    b2_names = ("mlstm_bwd_sweep", "rows_product", "column_sums", "sum_rows",
-                "transpose_kernel", "mlstm_fwd_kernel<true, false>")
-    b2_ms = sum(v for k, v in kernels.items()
-                if any(n in k for n in b2_names))
+    b2_ms = sum(v for k, v in kernels.items() if "mlstm_bwd_" in k)
     b1_ms = sum(v for k, v in kernels.items()
-                if "mlstm_fwd_kernel<false, false>" in k)
+                if "mlstm_fwd_kernel<false>" in k)
     if total <= 0 or b2_ms <= 0 or b1_ms <= 0:
         raise AssertionError("torch.profiler saw no device time for the "
                              f"kernels: {sorted(kernels)[:20]}")
     log(f"  losses (cost, cls_loss) per step: "
-        + ", ".join(f"{c:.1f}/{l:.1f}" for _, _, _, c, l in records))
+        + ", ".join(f"{c:.1f}/{l:.1f}" for _, _, _, c, l, _ in records)
+        + f"; words per step {[r[5] for r in records]} (B1 and B2 run one "
+        f"step per word)")
     log(f"  launches per step (B1, B2): "
-        f"{[(f, b) for _, f, b, _, _ in records]}; on this path B1 "
+        f"{[(r[1], r[2]) for r in records]}; on this path B1 "
         f"{launches['mlstm_fwd']}, B2 {launches['mlstm_bwd']}")
     log(f"  snapshot at step {first[0]}, resumed to step {last[0]}; "
         f"{len(moved)} text leaves moved, ResNet bit-unchanged")
@@ -922,7 +1035,8 @@ def full_width_training(mlstm):
         f"{walls[TRAIN_STEPS]:.3f} s, median warm {median_ms / 1e3:.4f} s "
         f"(n={len(warm)}, min {min(warm):.4f}, max {max(warm):.4f}); peak "
         f"device memory {peak:.2f} GiB")
-    log(f"  profiled step {PROFILED_STEP} (torch.profiler on, wall "
+    log(f"  profiled step {PROFILED_STEP} ({records[PROFILED_STEP - 1][5]} "
+        f"words; torch.profiler on, wall "
         f"{profiled['wall'] * 1e3:.1f} ms): device kernel time "
         f"{total:.2f} ms, B2 {b2_ms:.2f} ms ({b2_ms / total:.1%} of device "
         f"time), B1 {b1_ms:.2f} ms; against the median warm step without "
@@ -1109,11 +1223,12 @@ def variant_training(variant):
 
 
 def kernel_entry(name, source, replaces, launches_by_path, err, ms,
-                 plain_ms, bound_ms_by, shape_name):
+                 plain_ms, bound_ms_by, shape_name, **extra):
     """One entry of the kernels line.  ``launches`` is the total over the
     paths' runs, ``launches_by_path`` the count of each path (every count
-    set to 0 just before that path and read just after it)."""
-    return {"name": name, "route": "cuda",
+    set to 0 just before that path and read just after it); ``extra`` keys
+    are added as they are."""
+    return {**extra, "name": name, "route": "cuda",
             "source": f"sketchyscenecolorization_torch/csrc/{source}",
             "replaces": f"sketchyscenecolorization_tpu/ops/pallas_mlstm.py:"
                         f"{replaces}",
@@ -1156,6 +1271,8 @@ def main() -> int:
 
     fwd = check_kernel(mlstm)
     bwd = check_bwd_kernel(mlstm)
+    kinds = profile_bwd_call(mlstm)
+    sass = sass_counts(mlstm.LIBRARY)
     attn = check_variant_kernels("attn")
     recur = check_variant_kernels("recur")
     log(f"library call: none for B1-B6 ({NO_LIBRARY}; B5/B6 also attend "
@@ -1186,7 +1303,10 @@ def main() -> int:
                      fwd["rmi"][2], fwd_bound(*rmi[1:6]), rmi[0]),
         kernel_entry("mlstm_bwd", "mlstm_bwd.cu", 778, by_kernel["mlstm_bwd"],
                      max(e for e, _, _, _ in bwd.values()), bwd["rmi"][2],
-                     bwd["rmi"][3], bwd_bound(*rmi[1:6]), rmi[0]),
+                     bwd["rmi"][3], bwd_bound(*rmi[1:6], tensor_cores=True),
+                     rmi[0], bound_f32_ms=bwd_bound(*rmi[1:6])[0],
+                     ms_by_kind={k: v[0] for k, v in kinds.items() if v[1]},
+                     hmma=sum(c[0] for c in sass.values())),
         kernel_entry("mlstm_attn_fwd", "mlstm_fwd.cu", 143,
                      by_kernel["mlstm_attn_fwd"],
                      max(r[0] for r in attn.values()), attn[a_shape[0]][1],
@@ -1195,8 +1315,10 @@ def main() -> int:
         kernel_entry("mlstm_attn_bwd", "mlstm_bwd.cu", 279,
                      by_kernel["mlstm_attn_bwd"],
                      max(r[3] for r in attn.values()), attn[a_shape[0]][5],
-                     attn[a_shape[0]][6], attn_bwd_bound(*a_shape[1:]),
-                     a_shape[0]),
+                     attn[a_shape[0]][6],
+                     attn_bwd_bound(*a_shape[1:], tensor_cores=True),
+                     a_shape[0],
+                     bound_f32_ms=attn_bwd_bound(*a_shape[1:])[0]),
         kernel_entry("recur_attn_fwd", "recur_attn_fwd.cu", 430,
                      by_kernel["recur_attn_fwd"],
                      max(r[0] for r in recur.values()), recur["recur"][1],

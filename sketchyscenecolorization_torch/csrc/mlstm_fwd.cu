@@ -23,12 +23,6 @@
 // instance spills about 100 bytes at 128 registers.  A row with no kept
 // step writes zeros.
 //
-// The same kernel, instantiated with kStage, is the first pass of the
-// backward kernel (csrc/mlstm_bwd.cu): it also writes, for the k-th valid
-// step of batch row n, the step's previous h and c and its pre-activation
-// gates to scratch slot k ([N, T, P, H] and [N, T, P, 4H]), which the
-// reverse sweep reads instead of recomputing h @ W_h.
-//
 // Design.  One block owns one (batch, pixel tile) pair and ALL H hidden
 // units of its pixels, because every step needs the whole previous h.  The
 // blocks carry nothing between them, so the grid is simply (tiles, N).
@@ -84,17 +78,14 @@ __device__ __forceinline__ void load_chunk(float* dst, const float* wh,
   load_rows(dst, wh, k0, min(kc, H - k0), 4 * H);
 }
 
-template <bool kStage, bool kAttn>
+template <bool kAttn>
 __global__ void __launch_bounds__(kMaxThreads)
 mlstm_fwd_kernel(const float* __restrict__ pixel,   // [N, P, 4H]
                  const float* __restrict__ step,    // [N, T, 4H]
                  const float* __restrict__ wh,      // [H, 4H]
                  const int* __restrict__ valid,     // [N, T]
                  const float* __restrict__ attn,    // [N, T] (kAttn)
-                 float* __restrict__ out,           // [N, P, H] (!kStage)
-                 float* __restrict__ stage_h,       // [N, T, P, H]  (kStage)
-                 float* __restrict__ stage_c,       // [N, T, P, H]  (kStage)
-                 float* __restrict__ stage_g,       // [N, T, P, 4H] (kStage)
+                 float* __restrict__ out,           // [N, P, H]
                  int P, int H, int T, int tile, int kc) {
   constexpr int PP = kPixelsPerThread;
   extern __shared__ float4 smem4[];
@@ -181,17 +172,6 @@ mlstm_fwd_kernel(const float* __restrict__ pixel,   // [N, P, 4H]
         }
         float2* cq = reinterpret_cast<float2*>(c_s + (r0 + q) * H + u0);
         const float2 c_old = *cq;
-        if (kStage && p < P) {       // slot it / n_chunks of batch row n
-          const size_t row = ((size_t)n * T + it / n_chunks) * P + p;
-#pragma unroll
-          for (int g = 0; g < 4; ++g) {
-            *reinterpret_cast<float2*>(stage_g + row * H4 + g * H + u0) =
-                make_float2(acc[g][q][0], acc[g][q][1]);
-          }
-          *reinterpret_cast<float2*>(stage_c + row * H + u0) = c_old;
-          *reinterpret_cast<float2*>(stage_h + row * H + u0) =
-              *reinterpret_cast<const float2*>(h_cur + (r0 + q) * H + u0);
-        }
         float cn[2], hn[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
@@ -228,7 +208,6 @@ mlstm_fwd_kernel(const float* __restrict__ pixel,   // [N, P, 4H]
     }
   }
 
-  if constexpr (kStage) return;   // the staging pass writes no final h
   if (kAttn && n_valid > 0) return;   // acc is written
   __syncthreads();
 #pragma unroll
@@ -242,11 +221,10 @@ mlstm_fwd_kernel(const float* __restrict__ pixel,   // [N, P, 4H]
   }
 }
 
-template <bool kStage, bool kAttn>
+template <bool kAttn>
 int launch(const float* pixel, const float* step, const float* wh,
-           const int* valid, const float* attn, float* out, float* stage_h,
-           float* stage_c, float* stage_g, int N, int P, int H, int T,
-           int tile, int kc, void* stream) {
+           const int* valid, const float* attn, float* out, int N, int P,
+           int H, int T, int tile, int kc, void* stream) {
   const int threads = (H / 2) * (tile / kPixelsPerThread);
   if (N <= 0 || P <= 0 || T <= 0 || H <= 0 || H % 4 != 0 ||
       tile % kPixelsPerThread != 0 || tile <= 0 || kc <= 0 || kc % 4 != 0 ||
@@ -255,14 +233,13 @@ int launch(const float* pixel, const float* step, const float* wh,
   }
   const size_t smem = (size_t)4 * H * (3 * tile + 8 * kc);
   cudaError_t err = cudaFuncSetAttribute(
-      mlstm_fwd_kernel<kStage, kAttn>,
+      mlstm_fwd_kernel<kAttn>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((P + tile - 1) / tile, N);
-  mlstm_fwd_kernel<kStage, kAttn>
+  mlstm_fwd_kernel<kAttn>
       <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          pixel, step, wh, valid, attn, out, stage_h, stage_c, stage_g, P, H,
-          T, tile, kc);
+          pixel, step, wh, valid, attn, out, P, H, T, tile, kc);
   return (int)cudaGetLastError();
 }
 
@@ -276,8 +253,8 @@ extern "C" int mlstm_fwd(const float* pixel, const float* step,
                          const float* wh, const int* valid, float* out,
                          int N, int P, int H, int T, int tile, int kc,
                          void* stream) {
-  return launch<false, false>(pixel, step, wh, valid, nullptr, out, nullptr,
-                              nullptr, nullptr, N, P, H, T, tile, kc, stream);
+  return launch<false>(pixel, step, wh, valid, nullptr, out, N, P, H, T,
+                       tile, kc, stream);
 }
 
 // B3: acc = sum over kept steps of attn[n, t] * h_t [N, P, H]; the same
@@ -286,18 +263,7 @@ extern "C" int mlstm_attn_fwd(const float* pixel, const float* step,
                               const float* wh, const int* valid,
                               const float* attn, float* out, int N, int P,
                               int H, int T, int tile, int kc, void* stream) {
-  return launch<false, true>(pixel, step, wh, valid, attn, out, nullptr,
-                             nullptr, nullptr, N, P, H, T, tile, kc, stream);
+  return launch<true>(pixel, step, wh, valid, attn, out, N, P, H, T, tile,
+                      kc, stream);
 }
 
-// The staging forward of the backward kernel (csrc/mlstm_bwd.cu): writes
-// the stage tensors only.
-extern "C" int mlstm_fwd_stage(const float* pixel, const float* step,
-                               const float* wh, const int* valid,
-                               float* stage_h, float* stage_c, float* stage_g,
-                               int N, int P, int H, int T, int tile, int kc,
-                               void* stream) {
-  return launch<true, false>(pixel, step, wh, valid, nullptr, nullptr,
-                             stage_h, stage_c, stage_g, N, P, H, T, tile, kc,
-                             stream);
-}

@@ -20,8 +20,10 @@
 // dh and dc unchanged and contributes nothing.  Takes w == H, H a multiple
 // of 64 up to 512, T <= 16 (the forward's limits).
 //
-// Design: B2's pattern (csrc/mlstm_bwd.cu), with no float atomics, so two
-// calls give bit-identical gradients.  Launches on one stream:
+// Design: a staging forward, a reverse sweep whose blocks carry the
+// recurrence of their pixels, and ordered reductions, with no float
+// atomics, so two calls give bit-identical gradients.  Launches on one
+// stream:
 //   1. transpose Wm [2H, 4H] and Wp [H, H] (scratch), so that the reverse
 //      products stream contiguous rows;
 //   2. the forward kernel with kStage: for the k-th kept step of each batch

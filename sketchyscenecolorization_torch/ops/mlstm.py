@@ -56,9 +56,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 MAX_HIDDEN = 1024
 SMEM_BYTES = 232448               # shared memory a block may use on sm_90
-DWH_TILE = 64                     # d_W_h output tile of csrc/mlstm_bwd.cu
 SMS = 132                         # streaming multiprocessors of an H100
-SWEEP_THREADS = 256               # most threads of a reverse-sweep block
+# csrc/mlstm_bwd.cu: hidden size padded to a multiple of BWD_PAD; its
+# products stage K BWD_BK deep; B4's d_attn partials cover ATTN_ROWS pixel
+# rows each
+BWD_PAD, BWD_BK, ATTN_ROWS = 128, 32, 64
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -197,25 +199,73 @@ def launch_geometry(hidden: int):
 
 def product_splits(p: int, rows: int, cols: int) -> int:
     """Pixel ranges of the tiled sum-of-outer-products kernel
-    (``csrc/common.cuh``, ``rows_product_kernel``) for a [rows, cols]
-    output: more than one when its 64x64 output tiles alone would give fewer
-    than 4 blocks per SM; each range writes a partial, summed in a fixed
-    order afterwards."""
-    blocks = -(-rows // DWH_TILE) * -(-cols // DWH_TILE)
+    (``csrc/common.cuh``, ``rows_product_kernel``, which B6 uses) for a
+    [rows, cols] output: more than one when its 64x64 output tiles alone
+    would give fewer than 4 blocks per SM; each range writes a partial,
+    summed in a fixed order afterwards."""
+    blocks = -(-rows // 64) * -(-cols // 64)
     return max(1, min(-(-4 * SMS // blocks), p // 128, 16))
 
 
-def bwd_geometry(p: int, hidden: int):
-    """(tile, kc, threads, shared-memory bytes, splits) of the backward
-    kernel's reverse sweep and d_W_h product (``csrc/mlstm_bwd.cu``): each
-    thread owns 4 units of 8 pixels; shared memory holds the tile's dgates,
-    two chunks of kc rows of W_h^T and a block-reduction buffer (d_attn of
-    the word-attention variant).  ``splits``: ``product_splits``."""
-    launch_geometry(hidden)         # the staging forward's limits
-    tile, kc = (16, 16) if hidden <= 512 else (8, 8)
-    threads = hidden // 4 * tile // 8
-    smem = 4 * (tile * 4 * hidden + 2 * kc * hidden + SWEEP_THREADS)
-    return tile, kc, threads, smem, product_splits(p, hidden, 4 * hidden)
+def product_smem(bm: int, bn: int, a_outer: bool, b_outer: bool,
+                 stages: int) -> int:
+    """Dynamic shared memory of one 3xTF32 product block of
+    ``csrc/mlstm_bwd.cu`` (``Tile``): ``stages`` cp.async stages of the A
+    and B slices (stored [k][m] when ``*_outer``, else [m][k], rows padded
+    against bank conflicts), or the [bm, bn + 8] accumulator tile if
+    larger, plus two ints per row."""
+    def operand(width, outer):
+        return BWD_BK * (width + 8) if outer else width * (BWD_BK + 4)
+    stage = operand(bm, a_outer) + operand(bn, b_outer)
+    return 4 * (max(stages * stage, bm * (bn + 8)) + 2 * bm)
+
+
+# (rows, columns, A stored [k][m], B stored [k][n], stages) of the three
+# products of csrc/mlstm_bwd.cu: staging forward, sweep, d_W_h, and how many
+# blocks of each share an SM
+BWD_TILES = ((128, 128, False, True, 3), (64, 64, False, False, 3),
+             (128, 128, True, True, 3))
+BWD_BLOCKS_PER_SM = (2, 3, 2)
+
+
+def bwd_geometry(rows: int, hidden: int):
+    """(Hp, splits, shared-memory bytes) of the backward kernel
+    (``csrc/mlstm_bwd.cu``) for ``rows`` = N*P pixel rows: H padded to Hp, a
+    multiple of 128; the d_W_h product's K split into ``splits`` ranges
+    (as many blocks as fit on the card in one wave with its 128x128 tiles;
+    at most 16 and one per 64 rows); the largest dynamic shared memory of
+    its three products (BWD_TILES).  Raises on what the kernels do not
+    take: the forward's hidden sizes (``launch_geometry``, since the
+    backward gets the forward's inputs), and more than 65535 tiles of 64
+    rows."""
+    launch_geometry(hidden)
+    if not 0 < rows <= 65535 * 64:
+        raise ValueError(f"mlstm_bwd_cuda: {rows} pixel rows (N*P) must be "
+                         f"between 1 and {65535 * 64}")
+    hp = -(-hidden // BWD_PAD) * BWD_PAD
+    tiles = (hp // 128) * (4 * hp // 128)
+    splits = max(1, min(BWD_BLOCKS_PER_SM[2] * SMS // tiles, 16, rows // 64))
+    return hp, splits, max(product_smem(*tile) for tile in BWD_TILES)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, keeping 10 mantissa bits (the low 13 bits zero); inf
+    and NaN pass through.  The kernels' arithmetic, for tests."""
+    bits = x.contiguous().view(torch.int32)
+    special = (bits & 0x7F800000) == 0x7F800000
+    rounded = (bits + 0x1000) & ~0x1FFF     # the sign bit is never reached
+    return torch.where(special, bits, rounded).view(torch.float32)
+
+
+def matmul_3xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the backward kernel's tensor-core products compute it: each
+    f32 operand split into big = tf32(x) and small = tf32(x - big), and
+    small@big + big@small + big@big summed in f32 (the products of two TF32
+    values are exact in f32).  For tests."""
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    a_small, b_small = tf32_round(a - a_big), tf32_round(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
 
 
 def build() -> str:
@@ -244,7 +294,7 @@ def build() -> str:
 # C entry points of the library: (number of pointer arguments, number of
 # int arguments); each then takes the stream and returns a cudaError_t.
 _ENTRIES = {"mlstm_fwd": (5, 6), "mlstm_attn_fwd": (6, 6),
-            "mlstm_bwd": (13, 9), "mlstm_attn_bwd": (16, 9),
+            "mlstm_bwd": (15, 6), "mlstm_attn_bwd": (18, 6),
             "recur_attn_fwd": (8, 6), "recur_attn_bwd": (25, 8)}
 
 
@@ -371,8 +421,7 @@ def _bwd_cuda(pixel_term, step_term, w_h, valid, g, attn=None):
     name = "mlstm_bwd_cuda" if attn is None else "mlstm_attn_bwd_cuda"
     n, p, hidden, t_max = _check_cuda_inputs(name, pixel_term, step_term,
                                              w_h, valid, g, attn)
-    f_tile, f_kc, _, _ = launch_geometry(hidden)
-    tile, kc, _, _, splits = bwd_geometry(p, hidden)
+    hp, splits, _ = bwd_geometry(n * p, hidden)
     four_h = 4 * hidden
 
     def empty(*shape):
@@ -381,17 +430,20 @@ def _bwd_cuda(pixel_term, step_term, w_h, valid, g, attn=None):
 
     d_pixel, d_step, d_w_h = empty(n, p, four_h), empty(n, t_max, four_h), \
         empty(hidden, four_h)
-    scratch = (empty(four_h, hidden),                       # W_h^T
-               empty(n, t_max, p, hidden), empty(n, t_max, p, hidden),
-               empty(n, t_max, p, four_h),                  # staged h, c, g
-               empty(splits, hidden, four_h) if splits > 1 else None)
-    sizes = (n, p, hidden, t_max, f_tile, f_kc, tile, kc, splits)
+    slots = torch.empty(n * t_max + 2, dtype=torch.int32,
+                        device=pixel_term.device)
+    scratch = (empty(hp, 4 * hp), slots,          # permuted W_h, slot table
+               empty(t_max, n * p, hp), empty(t_max, n * p, hp),
+               empty(t_max, n * p, 4 * hp),       # staged h, c, gates
+               empty(n * p, hp),                  # dc
+               empty(splits, hp, 4 * hp))         # d_W_h partials
+    sizes = (n, p, hidden, t_max, hp, splits)
     if attn is None:
         launch("mlstm_bwd", pixel_term.device, pixel_term, step_term, w_h,
                valid, g, d_pixel, d_step, d_w_h, *scratch, *sizes)
         return d_pixel, d_step, d_w_h
     d_attn = empty(n, t_max)
-    attn_partials = empty(n, t_max, -(-p // tile))
+    attn_partials = empty(n, t_max, -(-p // ATTN_ROWS))
     launch("mlstm_attn_bwd", pixel_term.device, pixel_term, step_term, w_h,
            valid, attn, g, d_pixel, d_step, d_w_h, d_attn, *scratch,
            attn_partials, *sizes)
@@ -402,10 +454,11 @@ def mlstm_bwd_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
                    w_h: torch.Tensor, valid: torch.Tensor, g: torch.Tensor):
     """Launch ``csrc/mlstm_bwd.cu`` (B2) on the current stream: (d_pixel,
     d_step, d_w_h) of the final h.  Takes what ``mlstm_cuda`` takes plus
-    f32 ``g`` [N, P, H]; raises on anything else.  Allocates the scratch the
-    kernel stages into (``stage_h``/``stage_c`` [N, T, P, H], ``stage_g``
-    [N, T, P, 4H], W_h^T, the d_W_h partials).  ``mlstm_bwd_cuda.launches``
-    counts launches."""
+    f32 ``g`` [N, P, H]; raises on anything else.  Allocates the scratch of
+    ``bwd_geometry``'s padded width Hp: the permuted W_h [Hp, 4Hp], the slot
+    table, ``stage_h``/``stage_c`` [T, N*P, Hp], ``stage_g`` [T, N*P, 4Hp],
+    dc [N*P, Hp] and the d_W_h partials.  Never synchronises with the host.
+    ``mlstm_bwd_cuda.launches`` counts launches."""
     grads = _bwd_cuda(pixel_term, step_term, w_h, valid, g)
     mlstm_bwd_cuda.launches += 1
     return grads
@@ -420,8 +473,8 @@ def mlstm_attn_bwd_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
     """Launch B4, the word-attention instance of ``csrc/mlstm_bwd.cu``:
     (d_pixel, d_step, d_w_h, d_attn [N, T]) of acc.  Takes what
     ``mlstm_attn_cuda`` takes plus f32 ``g`` [N, P, H]; raises on anything
-    else.  Allocates ``mlstm_bwd_cuda``'s scratch and the per-tile d_attn
-    partials [N, T, tiles].  ``mlstm_attn_bwd_cuda.launches`` counts
+    else.  Allocates ``mlstm_bwd_cuda``'s scratch and the d_attn partials
+    [N, T, ceil(P / ATTN_ROWS)].  ``mlstm_attn_bwd_cuda.launches`` counts
     launches."""
     grads = _bwd_cuda(pixel_term, step_term, w_h, valid, g, attn)
     mlstm_attn_bwd_cuda.launches += 1

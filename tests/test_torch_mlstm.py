@@ -9,7 +9,12 @@ max-abs difference 1.2e-7 on h, 4.8e-7 on the gradients).
 ``mlstm_plain``.  The CUDA kernels themselves run only on the card
 (``cuda`` marker): B1 is held against ``mlstm_plain`` to 1e-4, B2 against
 ``mlstm_bwd_plain`` to 1e-4 of each gradient's largest magnitude, and two
-B2 launches must agree bit for bit.
+B2 launches must agree bit for bit.  B2 runs its products in 3xTF32 on
+the tensor cores; ``tf32_round`` and ``matmul_3xtf32_plain`` repeat that
+arithmetic here: TF32 rounding on chosen bit patterns, and the 3xTF32
+product at the RMI step shape cut to 256 pixels within 1e-6 of float64
+(measured 4.8e-7, as plain f32's 5.5e-7) where one TF32 pass is off by
+2.9e-4 of the result's magnitude.
 
 jax is imported inside the parity test only, so that the card's test run
 (which has no jax, see README) can import this file."""
@@ -134,14 +139,27 @@ def test_launch_geometry_fits_the_card(hidden):
     assert smem <= mlstm.SMEM_BYTES
 
 
-@pytest.mark.parametrize("p,hidden", [(9216, 500), (36, 512), (576, 1024),
-                                      (37, 100), (5, 8)])
-def test_bwd_geometry_fits_the_card(p, hidden):
-    tile, kc, threads, smem, splits = mlstm.bwd_geometry(p, hidden)
-    assert tile % 8 == 0 and kc % 4 == 0 and (4 * hidden) % kc == 0
-    assert threads == hidden // 4 * tile // 8 <= 256
+@pytest.mark.parametrize("rows,hidden", [(9216, 500), (144, 512),
+                                         (576, 1024), (111, 100), (15, 8),
+                                         (2002, 500)])
+def test_bwd_geometry_fits_the_card(rows, hidden):
+    hp, splits, smem = mlstm.bwd_geometry(rows, hidden)
+    assert hp % mlstm.BWD_PAD == 0 and hidden <= hp < hidden + mlstm.BWD_PAD
+    # BWD_BLOCKS_PER_SM blocks of each product on an SM (plus 1 KB each that
+    # the card reserves)
+    assert smem == max(mlstm.product_smem(*t) for t in mlstm.BWD_TILES)
+    for tile, blocks in zip(mlstm.BWD_TILES, mlstm.BWD_BLOCKS_PER_SM):
+        assert blocks * (mlstm.product_smem(*tile) + 1024) <= 233472
     assert smem <= mlstm.SMEM_BYTES
-    assert 1 <= splits <= max(1, p // 128)
+    assert 1 <= splits <= max(1, min(16, rows // 64))
+    tiles = (hp // 128) * (4 * hp // 128)
+    assert splits == 1 or splits * tiles <= 2 * mlstm.SMS   # one wave
+
+
+@pytest.mark.parametrize("rows", [0, 65535 * 64 + 1])
+def test_bwd_geometry_refuses_unsupported_rows(rows):
+    with pytest.raises(ValueError, match="pixel rows"):
+        mlstm.bwd_geometry(rows, 500)
 
 
 @pytest.mark.parametrize("hidden", [6, 1028])
@@ -150,6 +168,59 @@ def test_launch_geometry_refuses_unsupported_hidden(hidden):
         mlstm.launch_geometry(hidden)
     with pytest.raises(ValueError, match="multiple of 4"):
         mlstm.bwd_geometry(64, hidden)
+
+
+TF32_CASES = [
+    # f32 bits in, TF32 bits out (round to nearest, ties away from zero)
+    (0x3F800000, 0x3F800000),    # 1.0 is exact
+    (0x3F800FFF, 0x3F800000),    # just under half an ulp: down
+    (0x3F801000, 0x3F802000),    # 1 + 2^-11, a tie: away (even would stay)
+    (0xBF801000, 0xBF802000),    # its negative: away from zero
+    (0x3F805000, 0x3F806000),    # a tie whose even neighbour is below
+    (0x3F801001, 0x3F802000),    # just over half an ulp: up
+    (0x3FFFF000, 0x40000000),    # the carry reaches the exponent
+    (0x7F7FF000, 0x7F800000),    # past the largest TF32: inf
+    (0x00001000, 0x00002000),    # a subnormal tie
+    (0x80000000, 0x80000000),    # -0
+    (0xFF800000, 0xFF800000),    # -inf passes through
+]
+
+
+@pytest.mark.parametrize("bits,want", TF32_CASES,
+                         ids=[f"{b:08x}" for b, _ in TF32_CASES])
+def test_tf32_round_is_nearest_ties_away_to_10_bits(bits, want):
+    x = torch.tensor([bits], dtype=torch.int64).to(torch.int32)
+    got = mlstm.tf32_round(x.view(torch.float32)).view(torch.int32)
+    assert int(got) & 0xFFFFFFFF == want
+    assert int(got) & 0x1FFF == 0
+
+
+def test_tf32_round_keeps_nan():
+    assert torch.isnan(mlstm.tf32_round(torch.tensor([float("nan")]))).all()
+
+
+@pytest.mark.parametrize("product", ["forward", "sweep"])
+def test_3xtf32_product_keeps_f32_accuracy(product):
+    """The backward kernel's products in 3xTF32 at the RMI step shape cut to
+    P = 256 (h [256, 500] @ W_h [500, 2000]; dgates [256, 2000] @ W_h^T):
+    within 1e-6 of the float64 product's largest magnitude, where a single
+    TF32 pass is off by more than 1e-4 of it.  This is why the kernel holds
+    BWD_TOL = 1e-4 against the f32 plain version."""
+    rng = np.random.RandomState(5)
+    w_h = rng.randn(500, 2000) * 0.05
+    if product == "forward":
+        a, b = rng.uniform(-1, 1, (256, 500)), w_h
+    else:
+        a, b = rng.randn(256, 2000) * 0.1, w_h.T
+    a32, b32 = (torch.from_numpy(x.astype(np.float32)) for x in (a, b))
+    want = a32.double() @ b32.double()
+    scale = float(want.abs().max())
+    err3 = float((mlstm.matmul_3xtf32_plain(a32, b32).double()
+                  - want).abs().max()) / scale
+    err1 = float(((mlstm.tf32_round(a32) @ mlstm.tf32_round(b32)).double()
+                  - want).abs().max()) / scale
+    assert err3 <= 1e-6, err3
+    assert err1 > 1e-4, err1
 
 
 @pytest.fixture
@@ -189,6 +260,7 @@ BWD_SHAPES = [
     (4, 36, 512, 15, [4, 4, 4, 4], True),   # FG text fusion
     (1, 576, 1024, 8, [5], True),           # BG text fusion
     (3, 37, 100, 7, [7, 0, 3], False),      # ragged tile, an all-masked row
+    (3, 5, 8, 6, [3, 6, 0], True),          # smaller than one tile
 ]
 
 
