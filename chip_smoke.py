@@ -5,21 +5,24 @@
 
 Phases, each of which raises on failure (the script then exits non-zero
 and prints no result):
-  1. build all kernels with one nvcc call, printing registers and spills:
-     the masked pixel-LSTM ``csrc/mlstm_fwd.cu`` (B1, and B3 its
-     word-attention instance) and ``csrc/mlstm_bwd.cu`` (B2, B4), and the
-     RecurAttn recurrence ``csrc/recur_attn_fwd.cu`` (B5) and
+  1. build all kernels, one nvcc per source, all started together, printing
+     registers and spills: the masked pixel-LSTM ``csrc/mlstm_fwd.cu`` (B1
+     and B3, its word-attention variant) and ``csrc/mlstm_bwd.cu`` (B2,
+     B4), and the RecurAttn recurrence ``csrc/recur_attn_fwd.cu`` (B5) and
      ``csrc/recur_attn_bwd.cu`` (B6);
   2. turn TF32 off for cuDNN convolutions and cuBLAS matmuls;
   3. hold B1 against ``mlstm_plain`` on the card at the RMI, FG and BG
-     shapes (max-abs error on h <= 1e-4) and time both;
-  4. hold B2 against ``mlstm_bwd_plain`` at the same shapes (max-abs error
-     of each gradient <= 1e-4 of its largest magnitude), check that two
-     launches agree bit for bit, and time both against its f32 and 3xTF32
-     tensor-core bounds; profile one B2 call at the RMI shape by launch
-     kind (layout, staging forward, sweep, d_W_h, d_step); count the HMMA
-     (tensor-core) instructions of B2/B4's kernels in the built library
-     with ``cuobjdump -sass`` and check that they have no float atomics;
+     shapes, at H = 250 (not a multiple of 4) and at the FG shape with a
+     row without a kept step (max-abs error on h <= 1e-4) and time both;
+     profile one B1 call at the RMI shape by launch kind;
+  4. hold B2 against ``mlstm_bwd_plain`` at the same shapes but the last
+     (max-abs error of each gradient <= 1e-4 of its largest magnitude),
+     check that two launches agree bit for bit, and time both against its
+     f32 and 3xTF32 tensor-core bounds; profile one B2 call at the RMI
+     shape by launch kind (layout, staging forward, sweep, d_W_h, d_step);
+     count the HMMA (tensor-core) instructions of B1's, B2/B4's and B6's
+     kernels in the built library with ``cuobjdump -sass`` and check that
+     they have no float atomics;
   5. run the same FG instruction sequence through a CUDA session and a CPU
      session (plain PyTorch path) on a small synthetic scene, with the same
      seeded parameters and noise: records byte-equal, matched instances
@@ -39,12 +42,13 @@ and prints no result):
      written and resumed; step wall times, B2's share of a step
      (``torch.profiler``) and peak device memory;
   9. hold B3/B4 against ``mlstm_attn_plain``/``mlstm_attn_bwd_plain`` at
-     the RMI shape and a ragged one (acc within 1e-4; each gradient,
-     d_attn included, within 1e-4 of its largest magnitude; B4 bitwise
-     repeatable), and B5/B6 against ``recur_attn_plain``/
-     ``recur_attn_bwd_plain`` at the RecurAttn shape and a ragged mask with
-     a 0 inside a sequence, the same way; time each against its plain
-     version (this phase runs right after 4);
+     the RMI shape, a ragged one and H = 250 (acc within 1e-4; each
+     gradient, d_attn included, within 1e-4 of its largest magnitude; B4
+     bitwise repeatable), and B5/B6 against ``recur_attn_plain``/
+     ``recur_attn_bwd_plain`` at the RecurAttn shape, a ragged mask with a
+     0 inside a sequence and T = 20, the same way; time each against its
+     plain version; profile one B6 call at the RecurAttn shape by launch
+     kind (this phase runs right after 4);
  10. for each of the word-attention (``use_attn``) and RecurAttn fusions:
      the small-scene session sequence and three small-config train steps on
      CUDA against the CPU, as in 5 and 6; then at full width a session
@@ -52,8 +56,10 @@ and prints no result):
      5 ``train_matching`` steps on the synthetic corpus, each launching
      B3+B4 or B5+B6, with step walls, peak device memory and the last step
      under ``torch.profiler``;
- 11. print the kernels line (six kernels, launches per path), the card's
-     name and power limit, and last ``{"ok": true, "device": {...}}``.
+ 11. print the kernels line (six kernels: launches per path, times, the
+     f32 and 3xTF32 bounds, B1's, B2's and B6's device ms by launch kind),
+     the card's name and power limit, and last ``{"ok": true, "device":
+     {...}}``.
 
 Without a CUDA device, or outside the repository, it exits non-zero before
 printing any result.
@@ -80,10 +86,13 @@ HBM_BYTES = 3.35e12
 TRAIN_STEPS, RESUME_STEPS = 6, 2
 PROFILED_STEP = 5   # the full-width training step traced by torch.profiler
 SHAPES = [
-    # name, N, P, H, T, valid steps, front-padded
+    # name, N, P, H, T, valid steps (per row, or one count for all rows),
+    # front-padded
     ("rmi", 1, 9216, 500, 15, 7, False),
     ("fg", 4, 36, 512, 15, 4, True),
     ("bg", 1, 576, 1024, 8, 5, True),
+    ("h250", 2, 1001, 250, 15, 7, False),            # cli_matching scale 0.5
+    ("fg_empty_row", 4, 36, 512, 15, [4, 4, 0, 4], True),   # B1 only
 ]
 NO_LIBRARY = ("no single PyTorch call computes the masked TF-cell "
               "recurrence (gate order i,j,f,o, forget bias 1, per-step "
@@ -94,11 +103,14 @@ VARIANT_STEPS = 5   # full-width train steps of each variant fusion; the
 ATTN_SHAPES = [
     ("rmi_attn", 1, 9216, 500, 15, [[1] * 7 + [0] * 8]),
     ("ragged_attn", 2, 1001, 500, 15, [[1] * 5 + [0] * 10, [0] * 15]),
+    ("attn_h250", 2, 1001, 250, 15, [[1] * 7 + [0] * 8, [1] * 3 + [0] * 12]),
 ]
 RECUR_SHAPES = [
     ("recur", 1, 9216, 256, 15, [[1] * 7 + [0] * 8]),
     ("ragged_recur", 2, 1001, 256, 15,
      [[1, 1, 0, 1, 1, 1, 1] + [0] * 8, [0, 0, 1, 1, 1] + [0] * 10]),
+    ("recur_t20", 2, 1001, 256, 20, [[1] * 12 + [0] * 8,
+                                     [0, 1, 1, 0, 1] + [0] * 15]),
 ]
 VARIANTS = {"attn": {"use_attn": True}, "recur": {"fusion_type": "RecurAttn"}}
 
@@ -181,14 +193,22 @@ def bound(flops: float, nbytes: float, tc_flops: float = 0.0):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def fwd_bound(n, p, hid, t, n_valid):
+def _per_row(n, n_valid):
+    return list(n_valid) if isinstance(n_valid, (list, tuple)) \
+        else [n_valid] * n
+
+
+def fwd_bound(n, p, hid, t, n_valid, tensor_cores=False):
     """B1: one [P,H]x[H,4H] product per valid step after the first and
     batch row (the first valid step multiplies h = 0); inputs read once, h
-    written once."""
-    flops = 2 * p * hid * 4 * hid * max(n_valid - 1, 0) * n
+    written once.  In f32 on the CUDA cores, or with ``tensor_cores`` in
+    3xTF32 (three TF32 products per f32 product), as B1 runs."""
+    flops = sum(2 * p * hid * 4 * hid * max(k - 1, 0)
+                for k in _per_row(n, n_valid))
     nbytes = 4 * (n * p * 4 * hid + n * t * 4 * hid + hid * 4 * hid + n * t
                   + n * p * hid)
-    return bound(flops, nbytes)
+    return bound(0.0, nbytes, 3 * flops) if tensor_cores \
+        else bound(flops, nbytes)
 
 
 def bwd_bound(n, p, hid, t, n_valid, tensor_cores=False):
@@ -199,7 +219,8 @@ def bwd_bound(n, p, hid, t, n_valid, tensor_cores=False):
     the three gradients written once.  In f32 on the CUDA cores, or with
     ``tensor_cores`` at the precision the kernel runs: 3xTF32, three TF32
     products per f32 product."""
-    flops = 2 * p * hid * 4 * hid * 3 * max(n_valid - 1, 0) * n
+    flops = sum(2 * p * hid * 4 * hid * 3 * max(k - 1, 0)
+                for k in _per_row(n, n_valid))
     nbytes = 4 * (2 * n * p * 4 * hid + 2 * n * t * 4 * hid
                   + 2 * hid * 4 * hid + n * t + n * p * hid)
     if tensor_cores:
@@ -231,25 +252,28 @@ FUSION_KERNELS = {"": ("mlstm_fwd", "mlstm_bwd"),
                   "attn": ("mlstm_attn_fwd", "mlstm_attn_bwd"),
                   "recur": ("recur_attn_fwd", "recur_attn_bwd")}
 # device kernels (profiler names) of each variant's forward and backward
-SHARED_BWD = ("rows_product", "column_sums", "sum_rows", "transpose_kernel")
+# (the layout kernels of csrc/lstm_tc.cuh, shared by B1, B2/B4 and B6 and
+# 0.01 ms a call, are in none)
+B1_NAMES = ("mlstm_stage_kernel<true>",)
+B2_NAMES = ("mlstm_stage_kernel<false>", "mlstm_bwd_", "lstm_rows_product")
 PROFILE_NAMES = {
-    "attn": (("mlstm_fwd_kernel<true>",), ("mlstm_bwd_",)),
-    "recur": (("recur_attn_fwd_kernel<false>",),
-              ("recur_attn_sweep", "recur_attn_fwd_kernel<true>")
-              + SHARED_BWD)}
+    "attn": (("mlstm_attn_fwd_kernel",), B2_NAMES),
+    "recur": (("recur_attn_fwd_kernel",), ("recur_bwd_", "lstm_rows_product"))}
 
 
 def _kept(rows):
     return [sum(1 for v in row if v) for row in rows]
 
 
-def attn_fwd_bound(n, p, hid, t, rows):
+def attn_fwd_bound(n, p, hid, t, rows, tensor_cores=False):
     """B3: B1's products (per batch row one [P,H]x[H,4H] product per kept
-    step after the first); inputs (attn too) read once, acc written once."""
+    step after the first; with ``tensor_cores`` in 3xTF32); inputs (attn
+    too) read once, acc written once."""
     flops = sum(2 * p * hid * 4 * hid * max(k - 1, 0) for k in _kept(rows))
     nbytes = 4 * (n * p * 4 * hid + n * t * 4 * hid + hid * 4 * hid + 2 * n * t
                   + n * p * hid)
-    return bound(flops, nbytes)
+    return bound(0.0, nbytes, 3 * flops) if tensor_cores \
+        else bound(flops, nbytes)
 
 
 def attn_bwd_bound(n, p, hid, t, rows, tensor_cores=False):
@@ -267,28 +291,35 @@ def attn_bwd_bound(n, p, hid, t, rows, tensor_cores=False):
     return bound(flops + products, nbytes)
 
 
-def recur_fwd_bound(n, p, hid, t, rows):
+def recur_fwd_bound(n, p, hid, t, rows, tensor_cores=False):
     """B5: per pixel and kept step (every one: h starts at h0, not 0)
-    h@Wp (H*w), the logits and attn@lang (2*T*w) and [x,h]@Wm ((w+H)*4H),
-    w = H; inputs read once, h written once."""
-    per = hid * hid + 2 * t * hid + 2 * hid * 4 * hid
-    flops = 2 * p * per * sum(_kept(rows))
+    h@Wp (H*w) and [x,h]@Wm ((w+H)*4H) in f32, or with ``tensor_cores`` in
+    3xTF32, and the logits and attn@lang (2*T*w) in f32, w = H; inputs read
+    once, h written once."""
+    kept = sum(_kept(rows))
+    products = 2 * p * (hid * hid + 2 * hid * 4 * hid) * kept
+    attn = 2 * p * 2 * t * hid * kept
     nbytes = 4 * (2 * n * p * hid + n * t * hid + 9 * hid * hid + 5 * hid
                   + n * t)
-    return bound(flops, nbytes)
+    return bound(attn, nbytes, 3 * products) if tensor_cores \
+        else bound(attn + products, nbytes)
 
 
-def recur_bwd_bound(n, p, hid, t, rows):
+def recur_bwd_bound(n, p, hid, t, rows, tensor_cores=False):
     """B6: per pixel and kept step the recomputed forward (B5's products),
-    [dx, dh] = dgates@Wm^T, dx.lang, dlogits@lang, dhp@Wp^T, and the
-    gradient products [x,h]^T dgates, h^T dhp and attn^T dx + dlogits^T
-    h_proj: 3x B5; inputs (g too) read once, the six gradients written
-    once."""
-    per = 3 * (hid * hid + 2 * t * hid + 2 * hid * 4 * hid)
-    flops = 2 * p * per * sum(_kept(rows))
+    [dx, dh] = dgates@Wm^T, dhp@Wp^T and the gradient products [x,h]^T
+    dgates and h^T dhp (3x B5's products: in f32, or with ``tensor_cores``
+    in 3xTF32, as B6 runs), and in f32 the attention: the
+    forward's logits and attn@lang, dx.lang, dlogits@lang and attn^T dx +
+    dlogits^T h_proj (3x B5's); inputs (g too) read once, the six gradients
+    written once."""
+    kept = sum(_kept(rows))
+    products = 3 * 2 * p * (hid * hid + 2 * hid * 4 * hid) * kept
+    attn = 3 * 2 * p * 2 * t * hid * kept
     nbytes = 4 * (3 * n * p * hid + 2 * n * t * hid
                   + 2 * (9 * hid * hid + 5 * hid) + n * t)
-    return bound(flops, nbytes)
+    return bound(attn, nbytes, 3 * products) if tensor_cores \
+        else bound(attn + products, nbytes)
 
 
 def shape_inputs(n, p, hid, t, n_valid, front):
@@ -298,15 +329,15 @@ def shape_inputs(n, p, hid, t, n_valid, front):
     step = torch.randn(n, t, 4 * hid, device="cuda", generator=g) * 0.3
     w_h = torch.randn(hid, 4 * hid, device="cuda", generator=g) * 0.05
     dh = torch.randn(n, p, hid, device="cuda", generator=g)
-    steps = torch.arange(t, device="cuda")
-    valid = (steps >= t - n_valid) if front else (steps < n_valid)
-    valid = valid[None].expand(n, t).to(torch.int32).contiguous()
-    return pixel, step, w_h, valid, dh
+    steps = torch.arange(t, device="cuda")[None]
+    kept = torch.tensor(_per_row(n, n_valid), device="cuda")[:, None]
+    valid = (steps >= t - kept) if front else (steps < kept)
+    return pixel, step, w_h, valid.to(torch.int32).contiguous(), dh
 
 
 def check_kernel(mlstm):
-    """B1 vs plain on the card at the three shapes of the system; returns
-    {shape name: (max_abs_err, kernel ms, plain ms)}."""
+    """B1 vs plain on the card at the shapes of SHAPES; returns {shape
+    name: (max_abs_err, kernel ms, plain ms)}."""
     import torch
     results = {}
     for name, n, p, hid, t, n_valid, front in SHAPES:
@@ -326,21 +357,23 @@ def check_kernel(mlstm):
                           for f in (plain, kernel, kernel, plain))
         results[name] = (err, (k1 + k2) / 2, (p1 + p2) / 2)
         b_ms, b_by = fwd_bound(n, p, hid, t, n_valid)
+        tc_ms, _ = fwd_bound(n, p, hid, t, n_valid, tensor_cores=True)
         log(f"B1 vs plain [{name}: N={n} P={p} H={hid} T={t}, "
             f"{n_valid} valid, {'front' if front else 'end'}-padded]: "
             f"max_abs_err {err:.3e} (tol {TOL:.0e}), kernel "
             f"{results[name][1]:.3f} ms, plain {results[name][2]:.3f} ms, "
-            f"bound {b_ms:.3f} ms ({b_by})")
+            f"bound f32 {b_ms:.3f} ms ({b_by}), 3xTF32 {tc_ms:.3f} ms: "
+            f"{tc_ms / results[name][1]:.1%} of it")
     return results
 
 
 def check_bwd_kernel(mlstm):
-    """B2 vs plain on the card at the three shapes, two launches bitwise
-    equal; returns {shape name: (max_abs_err, max_rel_err, kernel ms,
-    plain ms)}."""
+    """B2 vs plain on the card at the shapes of SHAPES but the last, two
+    launches bitwise equal; returns {shape name: (max_abs_err, max_rel_err,
+    kernel ms, plain ms)}."""
     import torch
     results = {}
-    for name, n, p, hid, t, n_valid, front in SHAPES:
+    for name, n, p, hid, t, n_valid, front in SHAPES[:-1]:
         args = shape_inputs(n, p, hid, t, n_valid, front)
         got = mlstm.mlstm_bwd_cuda(*args)
         again = mlstm.mlstm_bwd_cuda(*args)
@@ -381,95 +414,161 @@ def check_bwd_kernel(mlstm):
     return results
 
 
-# launch kinds of B2/B4 (csrc/mlstm_bwd.cu) by kernel-name prefix
-BWD_KINDS = {"layout": ("mlstm_bwd_slots", "mlstm_bwd_layout"),
-             "staging forward": ("mlstm_bwd_stage",),
+# launch kinds of B1 (csrc/mlstm_fwd.cu) and B2/B4 (csrc/mlstm_bwd.cu) by
+# kernel-name substring (the layout kernels of csrc/lstm_tc.cuh serve both)
+LAYOUT = ("lstm_slots", "lstm_layout")
+FWD_KINDS = {"layout": LAYOUT, "stage": ("mlstm_stage_kernel<true>",)}
+BWD_KINDS = {"layout": LAYOUT,
+             "staging forward": ("mlstm_stage_kernel<false>",),
              "sweep": ("mlstm_bwd_sweep",),
-             "d_W_h": ("mlstm_bwd_dwh",),
+             "d_W_h": ("lstm_rows_product", "lstm_weight_sum"),
              "d_step": ("mlstm_bwd_step_sums",),
-             "d_attn": ("mlstm_bwd_attn",)}
-# its kernels that run products on the tensor cores
-BWD_PRODUCTS = ("mlstm_bwd_stage", "mlstm_bwd_sweep", "mlstm_bwd_dwh_kernel")
+             "d_attn": ("mlstm_bwd_attn", "lstm_ordered_sum")}
+# launch kinds of B6 (csrc/recur_attn_bwd.cu)
+RECUR_BWD_KINDS = {"layout": LAYOUT + ("recur_bwd_pad", "Memset"),
+                   "F1 h_proj": ("recur_bwd_proj",),
+                   "F2 softmax": ("recur_bwd_softmax",),
+                   "F3 gates+cell": ("recur_bwd_gates",),
+                   "S3 dh+cell grad": ("recur_bwd_sweep",),
+                   "S1 dx": ("recur_bwd_dx",),
+                   "S2 attn bwd": ("recur_bwd_attn",),
+                   "d_Wm, d_Wp": ("lstm_rows_product", "lstm_weight_sum"),
+                   "sums": ("lstm_ordered_sum", "recur_bwd_col_parts")}
+# kernels that run products on the tensor cores
+SASS_PRODUCTS = {
+    "B1": ("mlstm_stage_kernel<true>",),
+    "B2/B4": ("mlstm_stage_kernel<false>", "mlstm_bwd_sweep_kernel<false>",
+              "mlstm_bwd_sweep_kernel<true>", "lstm_rows_product_kernel"),
+    "B6": ("recur_bwd_proj_kernel", "recur_bwd_gates_kernel",
+           "recur_bwd_sweep_kernel", "recur_bwd_dx_kernel",
+           "lstm_rows_product_kernel")}
 
 
-def profile_bwd_call(mlstm):
-    """One B2 call at the RMI shape under ``torch.profiler``: device ms and
-    launches by launch kind (BWD_KINDS); returns {kind: (ms, launches)}."""
+def profile_call(label, call, kinds, per_launch=()):
+    """One ``call()`` under ``torch.profiler`` after a warm-up call: device
+    ms and launches by launch kind (``kinds``: {kind: kernel-name
+    substrings}), and the per-launch device times of the ``per_launch``
+    kinds in launch order.  Raises unless every kind of ``per_launch`` ran.
+    Returns {kind: (ms, launches)}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    name, n, p, hid, t, n_valid, front = SHAPES[0]
-    args = shape_inputs(n, p, hid, t, n_valid, front)
-    mlstm.mlstm_bwd_cuda(*args)
+    call()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        mlstm.mlstm_bwd_cuda(*args)
+        call()
         torch.cuda.synchronize()
-    kinds = {kind: [0.0, 0] for kind in BWD_KINDS}
+    sums = {kind: [0.0, 0] for kind in kinds}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0))
         if us <= 0 or getattr(ev, "device_type", None) == \
                 torch.autograd.DeviceType.CPU:
             continue
-        for kind, prefixes in BWD_KINDS.items():
-            if any(pre in ev.key for pre in prefixes):
-                kinds[kind][0] += us / 1e3
-                kinds[kind][1] += ev.count
-    total = sum(ms for ms, _ in kinds.values())
-    if kinds["sweep"][0] <= 0 or kinds["staging forward"][0] <= 0:
-        raise AssertionError(f"torch.profiler saw no B2 kernels: {kinds}")
-    log(f"B2 at {name} by launch kind (torch.profiler, one call, device "
+        for kind, names in kinds.items():
+            if any(pre in ev.key for pre in names):
+                sums[kind][0] += us / 1e3
+                sums[kind][1] += ev.count
+                break
+    if any(sums[kind][0] <= 0 for kind in per_launch):
+        raise AssertionError(f"torch.profiler saw no {label} kernels: {sums}")
+    total = sum(ms for ms, _ in sums.values())
+    log(f"{label} by launch kind (torch.profiler, one call, device "
         f"{total:.3f} ms): "
         + ", ".join(f"{k} {ms:.3f} ms / {c} launches"
-                    for k, (ms, c) in kinds.items() if c))
-    # per launch, in launch order: slot ranks 0..T-1 of the staging forward
-    # (no product at 0), T-1..0 of the sweep (no product at the last kept
-    # slot); ranks past the kept steps exit at once
-    for kind in ("staging forward", "sweep"):
+                    for k, (ms, c) in sums.items() if c))
+    for kind in per_launch:
         runs = sorted((ev.time_range.start, ev.time_range.elapsed_us())
                       for ev in prof.events()
                       if ev.device_type != torch.autograd.DeviceType.CPU
-                      and any(pre in ev.name for pre in BWD_KINDS[kind]))
+                      and any(pre in ev.name for pre in kinds[kind]))
         log(f"  {kind} per launch (us): "
             + " ".join(f"{us:.1f}" for _, us in runs))
+    return {k: tuple(v) for k, v in sums.items()}
+
+
+def profile_fwd_call(mlstm):
+    """One B1 call at the RMI shape by launch kind (FWD_KINDS), its stage
+    launches (slot ranks 0..T-1, no product at 0) one by one; ranks past
+    the kept steps exit at once."""
+    import torch
+    name, n, p, hid, t, n_valid, front = SHAPES[0]
+    pixel, step, w_h, valid, _ = shape_inputs(n, p, hid, t, n_valid, front)
+    kinds = profile_call(f"B1 at {name}",
+                         lambda: mlstm.mlstm_cuda(pixel, step, w_h, valid),
+                         FWD_KINDS, ("stage",))
+    del pixel, step, w_h, valid
+    torch.cuda.empty_cache()
+    return kinds
+
+
+def profile_bwd_call(mlstm):
+    """One B2 call at the RMI shape by launch kind (BWD_KINDS), with the
+    staging forward's launches (slot ranks 0..T-1, no product at 0) and the
+    sweep's (T-1..0, no product at a row's last kept slot) one by one;
+    ranks past the kept steps exit at once."""
+    import torch
+    name, n, p, hid, t, n_valid, front = SHAPES[0]
+    args = shape_inputs(n, p, hid, t, n_valid, front)
+    kinds = profile_call(f"B2 at {name}", lambda: mlstm.mlstm_bwd_cuda(*args),
+                         BWD_KINDS, ("staging forward", "sweep"))
     del args
     torch.cuda.empty_cache()
-    return {k: tuple(v) for k, v in kinds.items()}
+    return kinds
+
+
+def profile_recur_bwd_call():
+    """One B6 call at the RecurAttn shape (RECUR_SHAPES[0]) by launch kind
+    (RECUR_BWD_KINDS), the gate products of the staging forward and the
+    sweep's dh products launch by launch."""
+    import torch
+    from sketchyscenecolorization_torch.ops import recur_attn
+    name, n, p, hid, t, rows = RECUR_SHAPES[0]
+    args, dout = variant_inputs("recur", n, p, hid, t, rows)
+    kinds = profile_call(f"B6 at {name}",
+                         lambda: recur_attn.recur_attn_bwd_cuda(*args, dout),
+                         RECUR_BWD_KINDS,
+                         ("F3 gates+cell", "S3 dh+cell grad"))
+    del args, dout
+    torch.cuda.empty_cache()
+    return kinds
 
 
 def sass_counts(library: str):
-    """{kernel name: (HMMA, float atomics)} of B2/B4's kernels in the built
-    library, from ``cuobjdump -sass``; raises unless every product kernel
-    (BWD_PRODUCTS) runs HMMA and no B2/B4 kernel has a float atomic."""
+    """{kernel: (HMMA, float atomics)} of the tensor-core kernels of B1,
+    B2/B4 and B6 (SASS_PRODUCTS) in the built library, from ``cuobjdump
+    -sass``: the fewest HMMA and the most float atomics over the copies of
+    a kernel (a kernel of csrc/lstm_tc.cuh has one in each source that
+    launches it); raises unless each runs HMMA and none has a float
+    atomic."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", library], capture_output=True,
                           text=True, check=True).stdout
-    counts, fn = {}, None
+    names = {name for group in SASS_PRODUCTS.values() for name in group}
+    counts, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :", 1)[1].strip()
-            fn = fn if "mlstm_bwd_" in fn else None
-            if fn:
-                counts[fn] = [0, 0]
-        elif fn:
-            counts[fn][0] += "HMMA" in line
-            counts[fn][1] += any(op in line for op in ("ATOM", "RED.")) \
+            m = re.search(r"\d((?:m?lstm|recur_bwd)_[a-z_]+_kernel)"
+                          r"(?:ILb([01])E)?", line)
+            name = m and m.group(1) + {"0": "<false>", "1": "<true>"}.get(
+                m.group(2), "")
+            cur = [0, 0] if name in names else None
+            if cur:
+                counts.setdefault(name, []).append(cur)
+        elif cur:
+            cur[0] += "HMMA" in line
+            cur[1] += any(op in line for op in ("ATOM", "RED.")) \
                 and ".F32" in line
-    for prefix in BWD_PRODUCTS:
-        hits = [c[0] for f, c in counts.items() if prefix in f]
-        if not hits or min(hits) == 0:
-            raise AssertionError(f"no HMMA in {prefix}: {counts}")
-    if any(c[1] for c in counts.values()):
-        raise AssertionError(f"float atomics in B2/B4: {counts}")
-    def short(mangled):
-        m = re.search(r"\d(mlstm_bwd_[a-z]+_kernel)(?:ILb([01])E)?", mangled)
-        return m.group(1) + {"0": "<false>", "1": "<true>"}.get(
-            m.group(2), "") if m else mangled
-    log("SASS of B2/B4 (cuobjdump -sass): HMMA per kernel "
-        + ", ".join(f"{short(f)} {c[0]}" for f, c in sorted(counts.items())
-                    if c[0]) + "; no float atomics")
+    counts = {k: (min(c[0] for c in v), max(c[1] for c in v))
+              for k, v in counts.items()}
+    missing = [k for k in names if counts.get(k, (0, 0))[0] == 0]
+    if missing or any(a for _, a in counts.values()):
+        raise AssertionError(f"no HMMA in {missing} or float atomics: "
+                             f"{counts}")
+    log("SASS of B1, B2/B4 and B6 (cuobjdump -sass): HMMA per kernel "
+        + ", ".join(f"{k} {h}" for k, (h, _) in sorted(counts.items()))
+        + "; no float atomics")
     return counts
 
 
@@ -555,18 +654,17 @@ def check_variant_kernels(kind):
                (bk1 + bk2) / 2, (bp1 + bp2) / 2)
         results[name] = res
         (fb, fby), (bb, bby) = (f(n, p, hid, t, rows) for f in bounds)
-        tc = ""
-        if kind == "attn":
-            tc_ms, _ = attn_bwd_bound(n, p, hid, t, rows, tensor_cores=True)
-            tc = f", 3xTF32 bound {tc_ms:.3f} ms: {tc_ms / res[5]:.1%} of it"
+        ftc, btc = (f(n, p, hid, t, rows, tensor_cores=True)[0]
+                    for f in bounds)
         log(f"{labels[0]}/{labels[1]} vs plain [{name}: N={n} P={p} H={hid} "
             f"T={t}, kept steps {_kept(rows)}]: {labels[0]} max_abs_err "
             f"{err:.3e} (tol {TOL:.0e}), kernel {res[1]:.3f} ms, plain "
-            f"{res[2]:.3f} ms, bound {fb:.3f} ms ({fby}); {labels[1]} "
-            f"bitwise repeatable, max error {rel_err:.2e} of max|plain| (tol "
-            f"{BWD_TOL:.0e}), kernel {res[5]:.3f} ms, plain {res[6]:.3f} ms, "
-            f"bound {bb:.3f} ms ({bby}){tc}; order plain, kernel, kernel, "
-            f"plain: "
+            f"{res[2]:.3f} ms, bound f32 {fb:.3f} ms ({fby}), 3xTF32 "
+            f"{ftc:.3f} ms; {labels[1]} bitwise repeatable, max error "
+            f"{rel_err:.2e} of max|plain| (tol {BWD_TOL:.0e}), kernel "
+            f"{res[5]:.3f} ms, plain {res[6]:.3f} ms, bound f32 {bb:.3f} ms "
+            f"({bby}), 3xTF32 {btc:.3f} ms: {btc / res[5]:.1%} of it; order "
+            f"plain, kernel, kernel, plain: "
             f"{fp1:.3f} {fk1:.3f} {fk2:.3f} {fp2:.3f} / {bp1:.3f} {bk1:.3f} "
             f"{bk2:.3f} {bp2:.3f}")
         del args, dout
@@ -1015,9 +1113,9 @@ def full_width_training(mlstm):
             (0, TRAIN_STEPS, PROFILED_STEP - 1)]
     kernels = profiled["kernels"]
     total = sum(kernels.values())
-    b2_ms = sum(v for k, v in kernels.items() if "mlstm_bwd_" in k)
-    b1_ms = sum(v for k, v in kernels.items()
-                if "mlstm_fwd_kernel<false>" in k)
+    b2_ms, b1_ms = (sum(v for k, v in kernels.items()
+                        if any(name in k for name in names))
+                    for names in (B2_NAMES, B1_NAMES))
     if total <= 0 or b2_ms <= 0 or b1_ms <= 0:
         raise AssertionError("torch.profiler saw no device time for the "
                              f"kernels: {sorted(kernels)[:20]}")
@@ -1226,8 +1324,12 @@ def kernel_entry(name, source, replaces, launches_by_path, err, ms,
                  plain_ms, bound_ms_by, shape_name, **extra):
     """One entry of the kernels line.  ``launches`` is the total over the
     paths' runs, ``launches_by_path`` the count of each path (every count
-    set to 0 just before that path and read just after it); ``extra`` keys
-    are added as they are."""
+    set to 0 just before that path and read just after it).  ``bound_ms``
+    is the bound at the precision the kernel runs; ``bound_tc_ms`` (the
+    3xTF32 tensor-core bound) and ``bound_f32_ms`` (the f32 CUDA-core
+    bound) default to it; ``extra`` keys are added as they are."""
+    extra.setdefault("bound_tc_ms", bound_ms_by[0])
+    extra.setdefault("bound_f32_ms", bound_ms_by[0])
     return {**extra, "name": name, "route": "cuda",
             "source": f"sketchyscenecolorization_torch/csrc/{source}",
             "replaces": f"sketchyscenecolorization_tpu/ops/pallas_mlstm.py:"
@@ -1237,6 +1339,59 @@ def kernel_entry(name, source, replaces, launches_by_path, err, ms,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms_by[0],
             "bound_by": bound_ms_by[1], "library_ms": None,
             "shape": shape_name}
+
+
+def kernels_line(by_kernel, fwd, fwd_kinds, bwd, kinds, sass, attn, recur,
+                 recur_kinds):
+    """The six entries of the kernels line from the phases' results: the
+    launches of each path, B1's and B2's checks and profiles, the SASS
+    counts, B3-B6's checks and B6's profile, at each kernel's main shape."""
+    rmi, (_, n, p, hid, t, rows) = SHAPES[0], RECUR_SHAPES[0]
+    a_shape = ATTN_SHAPES[0]
+
+    def by_kind(sums):
+        return {k: v[0] for k, v in sums.items() if v[1]}
+
+    def hmma(label):
+        return sum(sass[name][0] for name in SASS_PRODUCTS[label])
+    return [
+        kernel_entry("mlstm_fwd", "mlstm_fwd.cu", 45, by_kernel["mlstm_fwd"],
+                     max(e for e, _, _ in fwd.values()), fwd["rmi"][1],
+                     fwd["rmi"][2], fwd_bound(*rmi[1:6], tensor_cores=True),
+                     rmi[0], bound_f32_ms=fwd_bound(*rmi[1:6])[0],
+                     ms_by_kind=by_kind(fwd_kinds), hmma=hmma("B1")),
+        kernel_entry("mlstm_bwd", "mlstm_bwd.cu", 778, by_kernel["mlstm_bwd"],
+                     max(e for e, _, _, _ in bwd.values()), bwd["rmi"][2],
+                     bwd["rmi"][3], bwd_bound(*rmi[1:6], tensor_cores=True),
+                     rmi[0], bound_f32_ms=bwd_bound(*rmi[1:6])[0],
+                     ms_by_kind=by_kind(kinds), hmma=hmma("B2/B4")),
+        kernel_entry("mlstm_attn_fwd", "mlstm_fwd.cu", 143,
+                     by_kernel["mlstm_attn_fwd"],
+                     max(r[0] for r in attn.values()), attn[a_shape[0]][1],
+                     attn[a_shape[0]][2], attn_fwd_bound(*a_shape[1:]),
+                     a_shape[0], bound_tc_ms=attn_fwd_bound(
+                         *a_shape[1:], tensor_cores=True)[0]),
+        kernel_entry("mlstm_attn_bwd", "mlstm_bwd.cu", 279,
+                     by_kernel["mlstm_attn_bwd"],
+                     max(r[3] for r in attn.values()), attn[a_shape[0]][5],
+                     attn[a_shape[0]][6],
+                     attn_bwd_bound(*a_shape[1:], tensor_cores=True),
+                     a_shape[0],
+                     bound_f32_ms=attn_bwd_bound(*a_shape[1:])[0]),
+        kernel_entry("recur_attn_fwd", "recur_attn_fwd.cu", 430,
+                     by_kernel["recur_attn_fwd"],
+                     max(r[0] for r in recur.values()), recur["recur"][1],
+                     recur["recur"][2], recur_fwd_bound(n, p, hid, t, rows),
+                     "recur", bound_tc_ms=recur_fwd_bound(
+                         n, p, hid, t, rows, tensor_cores=True)[0]),
+        kernel_entry("recur_attn_bwd", "recur_attn_bwd.cu", 554,
+                     by_kernel["recur_attn_bwd"],
+                     max(r[3] for r in recur.values()), recur["recur"][5],
+                     recur["recur"][6],
+                     recur_bwd_bound(n, p, hid, t, rows, tensor_cores=True),
+                     "recur",
+                     bound_f32_ms=recur_bwd_bound(n, p, hid, t, rows)[0],
+                     ms_by_kind=by_kind(recur_kinds), hmma=hmma("B6"))]
 
 
 def main() -> int:
@@ -1270,11 +1425,13 @@ def main() -> int:
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     fwd = check_kernel(mlstm)
+    fwd_kinds = profile_fwd_call(mlstm)
     bwd = check_bwd_kernel(mlstm)
     kinds = profile_bwd_call(mlstm)
     sass = sass_counts(mlstm.LIBRARY)
     attn = check_variant_kernels("attn")
     recur = check_variant_kernels("recur")
+    recur_kinds = profile_recur_bwd_call()
     log(f"library call: none for B1-B6 ({NO_LIBRARY}; B5/B6 also attend "
         "over the word-LSTM outputs inside the recurrence)")
     check_against_cpu(build_session)
@@ -1295,40 +1452,9 @@ def main() -> int:
     idle = [k for k, v in by_kernel.items() if not v]
     if idle:
         raise AssertionError(f"kernels never launched on a path: {idle}")
-    rmi, (_, n, p, hid, t, rows) = SHAPES[0], RECUR_SHAPES[0]
-    a_shape = ATTN_SHAPES[0]
-    log(json.dumps({"kernels": [
-        kernel_entry("mlstm_fwd", "mlstm_fwd.cu", 45, by_kernel["mlstm_fwd"],
-                     max(e for e, _, _ in fwd.values()), fwd["rmi"][1],
-                     fwd["rmi"][2], fwd_bound(*rmi[1:6]), rmi[0]),
-        kernel_entry("mlstm_bwd", "mlstm_bwd.cu", 778, by_kernel["mlstm_bwd"],
-                     max(e for e, _, _, _ in bwd.values()), bwd["rmi"][2],
-                     bwd["rmi"][3], bwd_bound(*rmi[1:6], tensor_cores=True),
-                     rmi[0], bound_f32_ms=bwd_bound(*rmi[1:6])[0],
-                     ms_by_kind={k: v[0] for k, v in kinds.items() if v[1]},
-                     hmma=sum(c[0] for c in sass.values())),
-        kernel_entry("mlstm_attn_fwd", "mlstm_fwd.cu", 143,
-                     by_kernel["mlstm_attn_fwd"],
-                     max(r[0] for r in attn.values()), attn[a_shape[0]][1],
-                     attn[a_shape[0]][2], attn_fwd_bound(*a_shape[1:]),
-                     a_shape[0]),
-        kernel_entry("mlstm_attn_bwd", "mlstm_bwd.cu", 279,
-                     by_kernel["mlstm_attn_bwd"],
-                     max(r[3] for r in attn.values()), attn[a_shape[0]][5],
-                     attn[a_shape[0]][6],
-                     attn_bwd_bound(*a_shape[1:], tensor_cores=True),
-                     a_shape[0],
-                     bound_f32_ms=attn_bwd_bound(*a_shape[1:])[0]),
-        kernel_entry("recur_attn_fwd", "recur_attn_fwd.cu", 430,
-                     by_kernel["recur_attn_fwd"],
-                     max(r[0] for r in recur.values()), recur["recur"][1],
-                     recur["recur"][2], recur_fwd_bound(n, p, hid, t, rows),
-                     "recur"),
-        kernel_entry("recur_attn_bwd", "recur_attn_bwd.cu", 554,
-                     by_kernel["recur_attn_bwd"],
-                     max(r[3] for r in recur.values()), recur["recur"][5],
-                     recur["recur"][6], recur_bwd_bound(n, p, hid, t, rows),
-                     "recur")]}))
+    log(json.dumps({"kernels": kernels_line(
+        by_kernel, fwd, fwd_kinds, bwd, kinds, sass, attn, recur,
+        recur_kinds)}))
     log(smi.splitlines()[0])
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,401 +16,584 @@
 //     d_Wm  += [x, h_prev]^T dgates;  d_bm += dgates;  d_Wp += h_prev^T dhp;
 //     d_bp  += dhp;  d_lang[n] += attn^T dx + dlogits^T h_proj
 //
-// and d_h0 is the dh left after the first kept step.  A masked step leaves
-// dh and dc unchanged and contributes nothing.  Takes w == H, H a multiple
-// of 64 up to 512, T <= 16 (the forward's limits).
+// and d_h0 is the dh left after the first kept step (g for a row without
+// one).  A masked step leaves dh and dc unchanged and contributes nothing.
+// Takes w == H (the RecurAttn configuration sets both to 256), any H, and
+// any T whose lang[n] fits in shared memory beside the attention kernels'
+// rows (ops/recur_attn.py: recur_bwd_geometry; T <= 198 at H = 256).  The
+// softmax runs over all T and is not masked, so T is never padded.
 //
-// Design: a staging forward, a reverse sweep whose blocks carry the
-// recurrence of their pixels, and ordered reductions, with no float
-// atomics, so two calls give bit-identical gradients.  Launches on one
-// stream:
-//   1. transpose Wm [2H, 4H] and Wp [H, H] (scratch), so that the reverse
-//      products stream contiguous rows;
-//   2. the forward kernel with kStage: for the k-th kept step of each batch
-//      row, scratch slot k receives [x, h_prev], c_prev, the gates, h_proj
-//      and attn (1.3 GB at the RecurAttn shape N=1, P=9216, H=256, T=15);
-//   3. the reverse sweep: one block owns a tile of pixels and all columns of
-//      them; a thread owns 2 units of 8 pixels, so its cell gradient needs
-//      no exchange and dh and dc stay in its registers between steps.  Per
-//      kept step: the cell gradient writes dgates to shared memory and over
-//      the staged gates; [dx, dh] = dgates @ Wm^T streams Wm^T in chunks of
-//      kc rows; one warp per pixel row then computes dattn, dlogits and
-//      dhp = dlogits @ lang (lang[n] resident in shared memory), writes dhp
-//      to scratch and adds the tile's attn^T dx + dlogits^T h_proj to a
-//      d_lang partial that the block keeps in shared memory for the whole
-//      sweep; dh += dhp @ Wp^T streams Wp^T in chunks of 2*kc rows.  The
-//      first kept step (last in the sweep) has a real product too: h0 is
-//      not 0 and its dh is d_h0, which trains the visual projection;
-//   4. the reductions: d_Wm = sum of [x, h_prev]^T dgates and d_Wp = sum of
-//      h_prev^T dhp over every kept step from slot 0, both by
-//      rows_product_kernel (csrc/common.cuh) with split partials summed in
-//      order; d_bm and d_bp as per-step column sums (column_sums_kernel)
-//      summed in order; d_lang as the per-tile partials summed in tile
-//      order (sum_rows_kernel).
+// Design: the per-step tensor-core machinery of B2 (csrc/lstm_tc.cuh): the
+// recurrence is carried from launch to launch, one slot rank k per launch
+// (slot k of batch row n is its k-th kept step, from the slot table), each
+// large product is one grid-wide 3xTF32 product over all N*P pixel rows
+// with the cell or its gradient in the epilogue, there is no host sync, and
+// no float atomics, so two calls give bit-identical gradients.  H = w is
+// padded to Hp, a multiple of 128: Wm's gate columns are permuted to (unit
+// block of 32, gate, unit) as B2's W_h (its x rows and h rows each padded to
+// Hp), Wp, lang and h0 are zero-padded; a padded unit's gates are 0, so its
+// c and h stay 0, and padded lang columns are 0, so the logits are
+// unchanged.  Launches on one stream:
+//   1. layout: the slot table; Wm permuted to wmp [2Hp, 4Hp]; Wp, lang and
+//      h0 padded (h0 into the h half of slot 0 of stage_xh); the d_lang
+//      partials zeroed;
+//   2. staging forward, k = 0 .. T-1, three launches each:
+//      F1 h_proj = h_{k-1} @ Wp + bp (64x64 tiles) -> stage_hp slot k;
+//      F2 one warp per row on the CUDA cores: the T logits against lang[n]
+//         (in shared memory), the softmax over all T, x = attn @ lang ->
+//         stage_attn and the x half of stage_xh slot k;
+//      F3 gates = [x, h_{k-1}] @ Wm + bm (K = 2Hp, 128x128 tiles), the cell in
+//         the epilogue: gates -> stage_g, c -> stage_c slot k, h -> the h
+//         half of stage_xh slot k + 1;
+//      slot 0 has real products (h_{-1} = h0 is not 0);
+//   3. reverse sweep, k = T-1 .. 0, three launches each, then one more:
+//      S3 dh = [dgates_{k+1}, dhp_{k+1}] @ [Wm_h; Wp]^T (one product, K =
+//         5Hp, 64x64 tiles; no product at a row's last kept slot, where dh
+//         = g), the cell gradient of slot k in the epilogue: dgates_k over
+//         stage_g slot k, dc in an [N*P, Hp] buffer; each row is aligned at
+//         its own last kept slot;
+//      S1 dx = dgates_k @ Wm_a^T (64x64 tiles) -> an [N*P, Hp] buffer;
+//      S2 one warp per row on the CUDA cores: dattn, dlogits, dhp = dlogits
+//         @ lang -> stage_dhp slot k, and attn^T dx + dlogits^T h_proj of the
+//         block's rows added to its own d_lang partial;
+//      S3 once more with k = -1: the same product at slot 0 is d_h0;
+//   4. reductions: d_Wm = sum of [x, h_prev]^T dgates and d_Wp = sum of
+//      h_prev^T dhp over every kept slot from 0, each one split-K 3xTF32
+//      product over the staged rows (lstm_rows_product_kernel, dead rows
+//      zero-filled) with its partials summed in a fixed order; d_bm and d_bp
+//      as column sums over row chunks, the chunks summed in order; d_lang as
+//      the blocks' partials summed in block order.
+// Staging holds [x, h] [T, N*P, 2Hp], c, h_proj and dhp [T, N*P, Hp], the
+// gates [T, N*P, 4Hp] and attn [T, N*P, T]: 1.3 GB at the RecurAttn shape
+// (N = 1, P = 9216, H = 256, T = 15).
 //
-// What bounds it on an H100: f32 FMAs on the CUDA cores.  Per pixel and
-// kept step it needs the forward's products (staging) plus dgates @ Wm^T
-// (2H*4H), dx . lang and dlogits @ lang (2*T*w), dhp @ Wp^T (H*w), and the
-// weight-gradient products [x, h]^T dgates (2H*4H), h^T dhp (H*w) and the
-// two d_lang products (2*T*w): 3x B5's work, 231 GFLOP at the
-// RecurAttn shape with 7 kept steps, 3.45 ms at 67 TFLOP/s.  wgmma in TF32
-// or bf16, TMA and fusing the reductions into the sweep are later work.
+// What bounds it on an H100: the products.  Per pixel and kept step the
+// staging forward's (H*w + (w + H)*4H multiply-adds), the sweep's dgates @
+// Wm^T ((w + H)*4H) and dhp @ Wp^T (H*w), and the weight gradients' (w + H)
+// *4H + H*w, plus the attention's 6*T*w on the CUDA cores: 231 GFLOP at the
+// RecurAttn shape with 7 kept steps, 3.45 ms in f32 at 67 TFLOP/s and 1.43
+// ms as the 3xTF32 products it runs (three TF32 products per f32 product at
+// 495 TFLOP/s).  The staged trajectory moves about 3 GB through HBM, 0.9 ms.
 
-#include "common.cuh"
-
-extern "C" int recur_attn_fwd_stage(const float* h0, const float* lang,
-                                    const float* wp, const float* bp,
-                                    const float* wm, const float* bm,
-                                    const int* valid, float* stage_xh,
-                                    float* stage_c, float* stage_g,
-                                    float* stage_hp, float* stage_attn, int N,
-                                    int P, int H, int T, int tile, int kc,
-                                    void* stream);
+#include "lstm_tc.cuh"
 
 namespace {
 
-constexpr int kPixelsPerThread = 8;   // PP: pixels of a thread in the sweep
-constexpr int kThreads = 256;
-constexpr int kMaxT = 16;
+using ProjTile = Tile<64, 64, false, true, 3>;   // h @ Wp: Wp stored [k][n]
 
-// Cell gradient of one kept step (scratch slot `slot`) for this thread's 2
-// units of 8 pixels.  Reads dh and updates dc in registers; writes dgates
-// to shared memory (zeros for pixel rows past P) and in place over the
-// staged gates.
-__device__ __forceinline__ void cell_backward(
-    float (&dh)[kPixelsPerThread][2], float (&dc)[kPixelsPerThread][2],
-    float* dg_s, const float* __restrict__ stage_c,
-    float* __restrict__ stage_g, int n, int slot, int p0, int r0, int u0,
-    int P, int H, int T) {
-  const int H4 = 4 * H;
-#pragma unroll
-  for (int q = 0; q < kPixelsPerThread; ++q) {
-    const int p = p0 + r0 + q;
-    const bool live = p < P;
-    const size_t row = ((size_t)n * T + slot) * P + min(p, P - 1);
-    float* gr = stage_g + row * H4 + u0;
-    float2 gate[4];
+constexpr int kWarps = kThreads / 32;
+
+// dst[r * ld + c] = src[r * cols + c] where r < src_rows and c < cols, else
+// 0, for r < rows and c < width.
+__global__ void recur_bwd_pad_kernel(const float* __restrict__ src,
+                                     int src_rows, int cols,
+                                     float* __restrict__ dst, int rows,
+                                     int width, int ld) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)rows * width) return;
+  const int r = (int)(i / width), c = (int)(i % width);
+  dst[(size_t)r * ld + c] =
+      (r < src_rows && c < cols) ? src[(size_t)r * cols + c] : 0.0f;
+}
+
+// F1, slot rank k: stage_hp[k] = h_{k-1} @ Wp + bp for the rows that have a
+// slot k, h_{k-1} the h half of stage_xh[k].
+__global__ void __launch_bounds__(kThreads, 3)
+recur_bwd_proj_kernel(const float* __restrict__ stage_xh,   // [T, N*P, 2Hp]
+                      const float* __restrict__ wpp,        // [Hp, Hp]
+                      const float* __restrict__ bp,         // [H]
+                      const int* __restrict__ slot_t,       // [N, T] (+2)
+                      float* __restrict__ stage_hp,         // [T, N*P, Hp]
+                      int N, int P, int H, int Hp, int T, int k) {
+  using G = ProjTile;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int* row_live = reinterpret_cast<int*>(smem + G::FLOATS);   // [ROWS]
+  const int M = N * P;
+  const int m0 = blockIdx.y * G::ROWS, c0 = blockIdx.x * G::COLS;
+  int live = 0;
+  if (threadIdx.x < G::ROWS) {
+    const int m = m0 + threadIdx.x;
+    live = m < M && slot_t[(m / P) * T + k] >= 0;
+    row_live[threadIdx.x] = live;
+  }
+  if (!__syncthreads_or(live)) return;
+
+  float acc[G::MT][G::NT][4];
+  const float* a_src = stage_xh + ((size_t)k * M + m0) * 2 * Hp + Hp;
+  tile_product<G>(acc, smem, Hp / kBK, [&](float* As, float* Bs, int kt) {
+    stage_inner<G::LDA>(As, a_src + kt * kBK, 2 * Hp, G::ROWS, M - 1 - m0);
+    stage_outer<G::LDB>(Bs, wpp + (size_t)kt * kBK * Hp + c0, Hp, G::COLS,
+                        [](int) { return true; });
+  });
+  store_tile<G>(acc, smem);
+  __syncthreads();
+  for (int i = threadIdx.x; i < G::ROWS * G::COLS; i += kThreads) {
+    const int r = i / G::COLS, v = c0 + i % G::COLS;
+    if (!row_live[r]) continue;
+    stage_hp[((size_t)k * M + m0 + r) * Hp + v] =
+        smem[r * G::LDC + i % G::COLS] + (v < H ? bp[v] : 0.0f);
+  }
+}
+
+// F2, slot rank k, one warp per pixel row of batch row n = blockIdx.y:
+// logits[t] = h_proj . lang[n, t] for all T, attn = their softmax (to
+// stage_attn), x = attn @ lang[n] (to the x half of stage_xh[k]).  Shared
+// memory: lang[n] [T, Hp], then per warp an h_proj row and its T logits.
+__global__ void __launch_bounds__(kThreads)
+recur_bwd_softmax_kernel(const float* __restrict__ stage_hp,  // [T, N*P, Hp]
+                         const float* __restrict__ langp,     // [N, T, Hp]
+                         const int* __restrict__ slot_t,      // [N, T] (+2)
+                         float* __restrict__ stage_attn,      // [T, N*P, T]
+                         float* __restrict__ stage_xh,        // [T, N*P, 2Hp]
+                         int N, int P, int Hp, int T, int k, int rows) {
+  const int n = blockIdx.y;
+  if (slot_t[n * T + k] < 0) return;
+  extern __shared__ float4 smem4[];
+  float* const lang_s = reinterpret_cast<float*>(smem4);     // [T, Hp]
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  float* const hr = lang_s + T * Hp + warp * (Hp + T);       // [Hp]
+  float* const lg = hr + Hp;                                 // [T]
+  const float4* src = reinterpret_cast<const float4*>(langp + (size_t)n * T * Hp);
+  for (int i = threadIdx.x; i < T * Hp / 4; i += kThreads) {
+    reinterpret_cast<float4*>(lang_s)[i] = src[i];
+  }
+  __syncthreads();
+  const int M = N * P, p0 = blockIdx.x * rows;
+  for (int r = warp; r < rows && p0 + r < P; r += kWarps) {
+    const size_t row = (size_t)k * M + (size_t)n * P + p0 + r;
+    for (int c = lane; c < Hp; c += 32) hr[c] = stage_hp[row * Hp + c];
+    __syncwarp();
+    for (int t = 0; t < T; ++t) {
+      float part = 0.0f;
+      for (int c = lane; c < Hp; c += 32) {
+        part = fmaf(hr[c], lang_s[t * Hp + c], part);
+      }
+      part = warp_sum(part);
+      if (lane == 0) lg[t] = part;
+    }
+    __syncwarp();
+    float mx = lg[0];
+    for (int t = 1; t < T; ++t) mx = fmaxf(mx, lg[t]);
+    float sum = 0.0f;
+    for (int t = 0; t < T; ++t) sum += expf(lg[t] - mx);
+    __syncwarp();                         // every lane has read the logits
+    for (int t = lane; t < T; t += 32) {
+      const float a = expf(lg[t] - mx) / sum;
+      lg[t] = a;
+      stage_attn[row * T + t] = a;
+    }
+    __syncwarp();
+    float* xr = stage_xh + row * 2 * Hp;
+    for (int c = lane; c < Hp; c += 32) {
+      float x = 0.0f;
+      for (int t = 0; t < T; ++t) x = fmaf(lg[t], lang_s[t * Hp + c], x);
+      xr[c] = x;
+    }
+    __syncwarp();                         // hr and lg are free again
+  }
+}
+
+// F3, slot rank k, over a 128-row x 128-column tile (32 units, 4 gates):
+// gates = [x, h_{k-1}] @ Wm + bm (stage_xh[k] @ wmp, K = 2Hp), then the cell:
+// the gates go to stage_g[k], c to stage_c[k] and h to the h half of
+// stage_xh[k + 1].
+__global__ void __launch_bounds__(kThreads, 2)
+recur_bwd_gates_kernel(float* __restrict__ stage_xh,        // [T, N*P, 2Hp]
+                       const float* __restrict__ wmp,       // [2Hp, 4Hp]
+                       const float* __restrict__ bm,        // [4H]
+                       const int* __restrict__ slot_t,      // [N, T] (+2)
+                       float* __restrict__ cs,              // [T, N*P, Hp]
+                       float* __restrict__ sg,              // [T, N*P, 4Hp]
+                       int N, int P, int H, int Hp, int T, int k) {
+  using G = FwdTile;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int* row_live = reinterpret_cast<int*>(smem + G::FLOATS);   // [ROWS]
+  const int M = N * P, H4p = 4 * Hp;
+  const size_t H2p = 2 * (size_t)Hp;
+  const int m0 = blockIdx.y * G::ROWS, c0 = blockIdx.x * G::COLS;
+  int live = 0;
+  if (threadIdx.x < G::ROWS) {
+    const int m = m0 + threadIdx.x;
+    live = m < M && slot_t[(m / P) * T + k] >= 0;
+    row_live[threadIdx.x] = live;
+  }
+  if (!__syncthreads_or(live)) return;
+
+  float acc[G::MT][G::NT][4];
+  const float* a_src = stage_xh + ((size_t)k * M + m0) * H2p;
+  tile_product<G>(acc, smem, 2 * Hp / kBK, [&](float* As, float* Bs, int kt) {
+    stage_inner<G::LDA>(As, a_src + kt * kBK, H2p, G::ROWS, M - 1 - m0);
+    stage_outer<G::LDB>(Bs, wmp + (size_t)kt * kBK * H4p + c0, H4p, G::COLS,
+                        [](int) { return true; });
+  });
+  store_tile<G>(acc, smem);
+  __syncthreads();
+
+  const int uu = threadIdx.x % kUnits;
+  const int u = blockIdx.x * kUnits + uu;
+  for (int r = threadIdx.x / kUnits; r < G::ROWS; r += kThreads / kUnits) {
+    if (!row_live[r]) continue;
+    const size_t m = m0 + r;
+    float gate[4];
 #pragma unroll
     for (int g = 0; g < 4; ++g) {
-      gate[g] = *reinterpret_cast<const float2*>(gr + g * H);
+      gate[g] = smem[r * G::LDC + g * kUnits + uu] + (u < H ? bm[g * H + u] : 0.0f);
+      sg[((size_t)k * M + m) * H4p + c0 + g * kUnits + uu] = gate[g];
     }
-    const float2 cp2 = *reinterpret_cast<const float2*>(stage_c + row * H + u0);
-    const float* gi = &gate[0].x;
-    const float* gj = &gate[1].x;
-    const float* gf = &gate[2].x;
-    const float* go = &gate[3].x;
-    const float* cp = &cp2.x;
-    float d[4][2];
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const float si = sigmoid_f(gi[u]);
-      const float tj = tanhf(gj[u]);
-      const float sf = sigmoid_f(gf[u] + 1.0f);
-      const float so = sigmoid_f(go[u]);
-      const float tc = tanhf(cp[u] * sf + si * tj);
-      const float dhu = dh[q][u];
-      const float dct = dc[q][u] + dhu * so * (1.0f - tc * tc);
-      d[0][u] = dct * tj * si * (1.0f - si);
-      d[1][u] = dct * si * (1.0f - tj * tj);
-      d[2][u] = dct * cp[u] * sf * (1.0f - sf);
-      d[3][u] = dhu * tc * so * (1.0f - so);
-      dc[q][u] = dct * sf;
+    float c = 0.0f, h = 0.0f;
+    if (u < H) {
+      const float c_prev = k > 0 ? cs[((size_t)(k - 1) * M + m) * Hp + u] : 0.0f;
+      c = c_prev * sigmoid_f(gate[2] + 1.0f)
+          + sigmoid_f(gate[0]) * tanhf(gate[1]);
+      h = sigmoid_f(gate[3]) * tanhf(c);
     }
-    float* ds = dg_s + (r0 + q) * H4 + u0;
+    cs[((size_t)k * M + m) * Hp + u] = c;
+    if (k + 1 < T) stage_xh[((size_t)(k + 1) * M + m) * H2p + Hp + u] = h;
+  }
+}
+
+// S3 at slot rank k over a 64-row x 64-unit tile: dh = [dgates_{k+1},
+// dhp_{k+1}] @ [Wm_h; Wp]^T for the rows that have a slot k+1 (K = 5Hp;
+// dh = g at a row's last kept slot), then the cell gradient of slot k:
+// dgates_k over stage_g[k], dc updated.  With k = -1 every row gets d_h0:
+// the product at slot 0, or g for a row without a kept step.
+__global__ void __launch_bounds__(kThreads, 3)
+recur_bwd_sweep_kernel(const float* __restrict__ gout,      // [N*P, H]
+                       const float* __restrict__ wmp,       // [2Hp, 4Hp]
+                       const float* __restrict__ wpp,       // [Hp, Hp]
+                       const int* __restrict__ slot_t,      // [N, T] (+2)
+                       const float* __restrict__ cs,        // [T, N*P, Hp]
+                       float* __restrict__ sg,              // [T, N*P, 4Hp]
+                       const float* __restrict__ stage_dhp, // [T, N*P, Hp]
+                       float* __restrict__ dc,              // [N*P, Hp]
+                       float* __restrict__ dh0,             // [N*P, H]
+                       int N, int P, int H, int Hp, int T, int k) {
+  using G = SweepTile;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  int* row_live = reinterpret_cast<int*>(smem + G::FLOATS);   // [ROWS]
+  int* row_more = row_live + G::ROWS;                         // [ROWS]
+  const int M = N * P, H4p = 4 * Hp;
+  const int m0 = blockIdx.y * G::ROWS, u0 = blockIdx.x * G::COLS;
+  int live = 0, more = 0;
+  if (threadIdx.x < G::ROWS) {
+    const int m = m0 + threadIdx.x;
+    if (m < M) {
+      const int* srow = slot_t + (m / P) * T;
+      live = k < 0 || srow[k] >= 0;
+      more = live && k + 1 < T && srow[k + 1] >= 0;
+    }
+    row_live[threadIdx.x] = live;
+    row_more[threadIdx.x] = more;
+  }
+  if (!__syncthreads_or(live)) return;
+  const bool product = __syncthreads_or(more);
+
+  float acc[G::MT][G::NT][4];
+  const int n4 = H4p / kBK;
+  const size_t next = product ? (size_t)(k + 1) * M + m0 : 0;
+  tile_product<G>(acc, smem, product ? n4 + Hp / kBK : 0,
+                  [&](float* As, float* Bs, int kt) {
+    if (kt < n4) {
+      stage_inner<G::LDA>(As, sg + next * H4p + kt * kBK, H4p, G::ROWS,
+                          M - 1 - m0);
+      stage_inner<G::LDB>(Bs, wmp + (size_t)(Hp + u0) * H4p + kt * kBK, H4p,
+                          G::COLS, G::COLS - 1);
+    } else {
+      const int kd = (kt - n4) * kBK;
+      stage_inner<G::LDA>(As, stage_dhp + next * Hp + kd, Hp, G::ROWS,
+                          M - 1 - m0);
+      stage_inner<G::LDB>(Bs, wpp + (size_t)u0 * Hp + kd, Hp, G::COLS,
+                          G::COLS - 1);
+    }
+  });
+  store_tile<G>(acc, smem);
+  __syncthreads();
+
+  const int uu = threadIdx.x % G::COLS;
+  const int u = u0 + uu;
+  for (int r = threadIdx.x / G::COLS; r < G::ROWS; r += kThreads / G::COLS) {
+    if (!row_live[r]) continue;
+    const size_t m = m0 + r;
+    const bool first = !row_more[r];      // the row's last slot: dh = g
+    const float dh = first ? (u < H ? gout[m * H + u] : 0.0f)
+                           : smem[r * G::LDC + uu];
+    if (k < 0) {
+      if (u < H) dh0[m * H + u] = dh;
+      continue;
+    }
+    float* gr = sg + ((size_t)k * M + m) * H4p;
+    if (u >= H) {                         // padding: dgates 0
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      const float2 v = live ? make_float2(d[g][0], d[g][1])
-                            : make_float2(0.f, 0.f);
-      *reinterpret_cast<float2*>(ds + g * H) = v;
-      if (live) *reinterpret_cast<float2*>(gr + g * H) = v;
+      for (int g = 0; g < 4; ++g) gr[perm_col(g, u)] = 0.0f;
+      continue;
+    }
+    const float c_prev = k > 0 ? cs[((size_t)(k - 1) * M + m) * Hp + u] : 0.0f;
+    float d[4];
+    cell_backward(gr, u, c_prev, dh, dc + m * Hp + u, first, d);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) gr[perm_col(g, u)] = d[g];
+  }
+}
+
+// S1 at slot rank k over a 64-row x 64-column tile: dx = dgates_k @ Wm_a^T
+// into dx [N*P, Hp] for the rows that have a slot k.
+__global__ void __launch_bounds__(kThreads, 3)
+recur_bwd_dx_kernel(const float* __restrict__ wmp,         // [2Hp, 4Hp]
+                    const int* __restrict__ slot_t,        // [N, T] (+2)
+                    const float* __restrict__ sg,          // [T, N*P, 4Hp]
+                    float* __restrict__ dx,                // [N*P, Hp]
+                    int N, int P, int Hp, int T, int k) {
+  using G = SweepTile;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int M = N * P, H4p = 4 * Hp;
+  const int m0 = blockIdx.y * G::ROWS, v0 = blockIdx.x * G::COLS;
+  int live = 0;
+  if (threadIdx.x < G::ROWS) {
+    const int m = m0 + threadIdx.x;
+    live = m < M && slot_t[(m / P) * T + k] >= 0;
+  }
+  if (!__syncthreads_or(live)) return;
+
+  float acc[G::MT][G::NT][4];
+  const float* a_src = sg + ((size_t)k * M + m0) * H4p;
+  tile_product<G>(acc, smem, H4p / kBK, [&](float* As, float* Bs, int kt) {
+    stage_inner<G::LDA>(As, a_src + kt * kBK, H4p, G::ROWS, M - 1 - m0);
+    stage_inner<G::LDB>(Bs, wmp + (size_t)v0 * H4p + kt * kBK, H4p, G::COLS,
+                        G::COLS - 1);
+  });
+  store_tile<G>(acc, smem);
+  __syncthreads();
+  for (int i = threadIdx.x; i < G::ROWS * G::COLS; i += kThreads) {
+    const int r = i / G::COLS;
+    if (m0 + r < M) {
+      dx[(size_t)(m0 + r) * Hp + v0 + i % G::COLS] = smem[r * G::LDC + i % G::COLS];
     }
   }
 }
 
+// S2 at slot rank k for `rows` pixel rows of batch row n = blockIdx.y, one
+// warp per row: dattn[t] = dx . lang[n, t], dlogits = attn * (dattn -
+// <dattn, attn>), dhp = dlogits @ lang[n] (to stage_dhp[k]); then the
+// block's d_lang partial [T, Hp] gains attn^T dx + dlogits^T h_proj over
+// its rows (one partial per block, added to in slot order).  Shared memory:
+// lang[n] [T, Hp], dx and h_proj rows [rows, Hp], attn and dlogits [rows,
+// T].
 __global__ void __launch_bounds__(kThreads)
-recur_attn_sweep_kernel(const float* __restrict__ gout,       // [N, P, H]
-                        const float* __restrict__ lang,       // [N, T, H]
-                        const float* __restrict__ wmt,        // [4H, 2H]
-                        const float* __restrict__ wpt,        // [H, H]
-                        const int* __restrict__ valid,        // [N, T]
-                        const float* __restrict__ stage_c,    // [N, T, P, H]
-                        float* __restrict__ stage_g,          // [N, T, P, 4H]
-                        const float* __restrict__ stage_hp,   // [N, T, P, H]
-                        const float* __restrict__ stage_attn, // [N, T, P, T]
-                        float* __restrict__ dhp_out,          // [N, T, P, H]
-                        float* __restrict__ dh0,              // [N, P, H]
-                        float* __restrict__ lang_part,  // [N, tiles, T, H]
-                        int P, int H, int T, int tile, int kc) {
-  constexpr int PP = kPixelsPerThread;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int H2 = 2 * H, H4 = 4 * H;
-  float* const dg_s = smem;                       // [tile, 4H]
-  float* const w_stages = dg_s + tile * H4;       // 2 x [kc * 2H]
-  float* const dx_s = w_stages + 2 * kc * H2;     // [tile, H]
-  float* const dhp_s = dx_s + tile * H;           // [tile, H]
-  float* const hp_s = dhp_s + tile * H;           // [tile, H]
-  float* const at_s = hp_s + tile * H;            // [tile, kMaxT]
-  float* const dl_s = at_s + tile * kMaxT;        // [tile, kMaxT]
-  float* const lang_s = dl_s + tile * kMaxT;      // [T, H]
-  float* const dlang_s = lang_s + T * H;          // [T, H]
-  const int stage_size = kc * H2;
-
+recur_bwd_attn_kernel(const float* __restrict__ dx,          // [N*P, Hp]
+                      const float* __restrict__ stage_hp,    // [T, N*P, Hp]
+                      const float* __restrict__ stage_attn,  // [T, N*P, T]
+                      const float* __restrict__ langp,       // [N, T, Hp]
+                      const int* __restrict__ slot_t,        // [N, T] (+2)
+                      float* __restrict__ stage_dhp,         // [T, N*P, Hp]
+                      float* __restrict__ lang_part,  // [N, blocks, T, Hp]
+                      int N, int P, int Hp, int T, int k, int rows) {
   const int n = blockIdx.y;
-  const int p0 = blockIdx.x * tile;
-  const int half_h = H / 2;
-  const int u0 = 2 * (threadIdx.x % half_h);
-  const int r0 = PP * (threadIdx.x / half_h);
+  if (slot_t[n * T + k] < 0) return;
+  extern __shared__ float4 smem4[];
+  float* const lang_s = reinterpret_cast<float*>(smem4);   // [T, Hp]
+  float* const dx_s = lang_s + T * Hp;                     // [rows, Hp]
+  float* const hp_s = dx_s + rows * Hp;                    // [rows, Hp]
+  float* const at_s = hp_s + rows * Hp;                    // [rows, T]
+  float* const dl_s = at_s + rows * T;                     // [rows, T]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n_warps = blockDim.x / 32;
-  const int* vrow = valid + n * T;
-  const int n_valid = valid_before(vrow, T, T);
-  float* const part = lang_part + ((size_t)n * gridDim.x + blockIdx.x) * T * H;
-
-  float dh[PP][2], dc[PP][2], dxa[PP][2];
-#pragma unroll
-  for (int q = 0; q < PP; ++q) {
-    const int p = min(p0 + r0 + q, P - 1);
-    const float2 gv =
-        *reinterpret_cast<const float2*>(gout + ((size_t)n * P + p) * H + u0);
-    dh[q][0] = gv.x; dh[q][1] = gv.y;
-    dc[q][0] = dc[q][1] = 0.0f;
+  const int M = N * P, p0 = blockIdx.x * rows;
+  const int here = min(rows, P - p0);
+  const size_t base = (size_t)k * M + (size_t)n * P + p0;   // staged row of p0
+  const float4* lsrc = reinterpret_cast<const float4*>(langp + (size_t)n * T * Hp);
+  for (int i = threadIdx.x; i < T * Hp / 4; i += kThreads) {
+    reinterpret_cast<float4*>(lang_s)[i] = lsrc[i];
   }
-  for (int i = threadIdx.x; i < T * H; i += blockDim.x) {
-    lang_s[i] = lang[(size_t)n * T * H + i];
-    dlang_s[i] = 0.0f;
+  for (int i = threadIdx.x; i < rows * Hp; i += kThreads) {
+    const int r = i / Hp, c = i % Hp;
+    const bool in = r < here;
+    dx_s[i] = in ? dx[((size_t)n * P + p0 + r) * Hp + c] : 0.0f;
+    hp_s[i] = in ? stage_hp[(base + r) * Hp + c] : 0.0f;
   }
-
-  const int kp = 2 * kc;                          // Wp^T rows per chunk
-  const int n1 = (H4 + kc - 1) / kc;              // Wm^T chunks per step
-  const int n2 = (H + kp - 1) / kp;               // Wp^T chunks per step
-  const int per_step = n1 + n2;
-  const int total = n_valid * per_step;
-  int slot = n_valid - 1;
-  if (total > 0) {
-    load_rows(w_stages, wmt, 0, min(kc, H4), H2);
-    cell_backward(dh, dc, dg_s, stage_c, stage_g, n, slot, p0, r0, u0, P, H,
-                  T);
+  for (int i = threadIdx.x; i < rows * T; i += kThreads) {
+    at_s[i] = i / T < here ? stage_attn[base * T + i] : 0.0f;
+    dl_s[i] = 0.0f;
   }
-
-  for (int it = 0; it < total; ++it) {
-    const int ch = it % per_step;
-    if (ch == 0) {
-#pragma unroll
-      for (int q = 0; q < PP; ++q) {
-        dh[q][0] = dh[q][1] = 0.0f;
-        dxa[q][0] = dxa[q][1] = 0.0f;
+  __syncthreads();
+  for (int r = warp; r < here; r += kWarps) {
+    const float* dxr = dx_s + r * Hp;
+    const float* a = at_s + r * T;
+    float* dl = dl_s + r * T;
+    for (int t = 0; t < T; ++t) {
+      float part = 0.0f;
+      for (int c = lane; c < Hp; c += 32) {
+        part = fmaf(dxr[c], lang_s[t * Hp + c], part);
       }
+      part = warp_sum(part);
+      if (lane == 0) dl[t] = part;                        // dattn
     }
-    cp_async_wait_all();           // chunk `it` has landed (own copies) ...
-    __syncthreads();               // ... for every thread; dg_s, dhp_s written
-    if (it + 1 < total) {
-      const int nx = (it + 1) % per_step;
-      float* dst = w_stages + ((it + 1) & 1) * stage_size;
-      if (nx < n1) {
-        load_rows(dst, wmt, nx * kc, min(kc, H4 - nx * kc), H2);
-      } else {
-        const int k0 = (nx - n1) * kp;
-        load_rows(dst, wpt, k0, min(kp, H - k0), H);
-      }
-    }
-    const float* ws = w_stages + (it & 1) * stage_size + u0;
-    if (ch < n1) {                 // [dx, dh] += dgates @ Wm^T
-      const int k0 = ch * kc;
-      const int rows = min(kc, H4 - k0);
-      const float* dk = dg_s + r0 * H4 + k0;
-      for (int kk = 0; kk < rows; kk += 4) {
-        float2 wx[4], wh[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          wx[j] = *reinterpret_cast<const float2*>(ws + (kk + j) * H2);
-          wh[j] = *reinterpret_cast<const float2*>(ws + (kk + j) * H2 + H);
-        }
-#pragma unroll
-        for (int q = 0; q < PP; ++q) {
-          const float4 dv = *reinterpret_cast<const float4*>(dk + q * H4 + kk);
-          const float dvs[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            dxa[q][0] = fmaf(dvs[j], wx[j].x, dxa[q][0]);
-            dxa[q][1] = fmaf(dvs[j], wx[j].y, dxa[q][1]);
-            dh[q][0] = fmaf(dvs[j], wh[j].x, dh[q][0]);
-            dh[q][1] = fmaf(dvs[j], wh[j].y, dh[q][1]);
-          }
-        }
-      }
-      if (ch == n1 - 1) {          // dx is complete: the attention backward
-#pragma unroll
-        for (int q = 0; q < PP; ++q) {
-          *reinterpret_cast<float2*>(dx_s + (r0 + q) * H + u0) =
-              make_float2(dxa[q][0], dxa[q][1]);
-        }
-        __syncthreads();
-        for (int r = warp; r < tile; r += n_warps) {   // one warp per row
-          const int p = p0 + r;
-          const size_t row = ((size_t)n * T + slot) * P + min(p, P - 1);
-          const float* dxr = dx_s + r * H;
-          float a[kMaxT], dl[kMaxT];
-          float s = 0.0f;
-#pragma unroll
-          for (int tt = 0; tt < kMaxT; ++tt) {
-            a[tt] = dl[tt] = 0.0f;
-            if (tt < T) {
-              float part_d = 0.0f;
-              for (int k = lane; k < H; k += 32) {
-                part_d = fmaf(dxr[k], lang_s[tt * H + k], part_d);
-              }
-              dl[tt] = warp_sum(part_d);             // dattn
-              a[tt] = stage_attn[row * T + tt];
-              s = fmaf(dl[tt], a[tt], s);
-            }
-          }
-#pragma unroll
-          for (int tt = 0; tt < kMaxT; ++tt) dl[tt] = a[tt] * (dl[tt] - s);
-          if (lane == 0) {
-#pragma unroll
-            for (int tt = 0; tt < kMaxT; ++tt) {
-              at_s[r * kMaxT + tt] = a[tt];
-              dl_s[r * kMaxT + tt] = dl[tt];
-            }
-          }
-          for (int col = lane; col < H; col += 32) {
-            float v = 0.0f;
-#pragma unroll
-            for (int tt = 0; tt < kMaxT; ++tt) {
-              if (tt < T) v = fmaf(dl[tt], lang_s[tt * H + col], v);
-            }
-            dhp_s[r * H + col] = v;
-            hp_s[r * H + col] = stage_hp[row * H + col];
-            if (p < P) dhp_out[row * H + col] = v;
-          }
-        }
-        __syncthreads();
-        // d_lang partial: this thread's columns, all T, over the tile
-        for (int col = threadIdx.x; col < H; col += blockDim.x) {
-          for (int tt = 0; tt < T; ++tt) {
-            float v = dlang_s[tt * H + col];
-            for (int r = 0; r < tile; ++r) {
-              v = fmaf(at_s[r * kMaxT + tt], dx_s[r * H + col], v);
-              v = fmaf(dl_s[r * kMaxT + tt], hp_s[r * H + col], v);
-            }
-            dlang_s[tt * H + col] = v;
-          }
-        }
-      }
-    } else {                       // dh += dhp @ Wp^T
-      const int k0 = (ch - n1) * kp;
-      const int rows = min(kp, H - k0);
-      const float* dk = dhp_s + r0 * H + k0;
-      for (int kk = 0; kk < rows; kk += 4) {
-        float2 w[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          w[j] = *reinterpret_cast<const float2*>(ws + (kk + j) * H);
-        }
-#pragma unroll
-        for (int q = 0; q < PP; ++q) {
-          const float4 dv = *reinterpret_cast<const float4*>(dk + q * H + kk);
-          const float dvs[4] = {dv.x, dv.y, dv.z, dv.w};
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            dh[q][0] = fmaf(dvs[j], w[j].x, dh[q][0]);
-            dh[q][1] = fmaf(dvs[j], w[j].y, dh[q][1]);
-          }
-        }
-      }
-      if (ch == per_step - 1 && slot > 0) {   // dh of the previous kept step
-        --slot;
-        cell_backward(dh, dc, dg_s, stage_c, stage_g, n, slot, p0, r0, u0, P,
-                      H, T);
-      }
+    __syncwarp();
+    float s = 0.0f;
+    for (int t = 0; t < T; ++t) s = fmaf(dl[t], a[t], s);
+    __syncwarp();                         // every lane has read dattn
+    for (int t = lane; t < T; t += 32) dl[t] = a[t] * (dl[t] - s);
+    __syncwarp();
+    for (int c = lane; c < Hp; c += 32) {
+      float v = 0.0f;
+      for (int t = 0; t < T; ++t) v = fmaf(dl[t], lang_s[t * Hp + c], v);
+      stage_dhp[(base + r) * Hp + c] = v;
     }
   }
-
-  // d_h0: the dh left after the first kept step (g itself without one)
-#pragma unroll
-  for (int q = 0; q < PP; ++q) {
-    const int p = p0 + r0 + q;
-    if (p < P) {
-      *reinterpret_cast<float2*>(dh0 + ((size_t)n * P + p) * H + u0) =
-          make_float2(dh[q][0], dh[q][1]);
+  __syncthreads();
+  float* part = lang_part + ((size_t)n * gridDim.x + blockIdx.x) * T * Hp;
+  for (int i = threadIdx.x; i < T * Hp; i += kThreads) {
+    const int t = i / Hp, c = i % Hp;
+    float v = part[i];
+    for (int r = 0; r < here; ++r) {
+      v = fmaf(at_s[r * T + t], dx_s[r * Hp + c], v);
+      v = fmaf(dl_s[r * T + t], hp_s[r * Hp + c], v);
     }
+    part[i] = v;
   }
-  // the d_lang partial, written by the threads that summed it (zeros for a
-  // row with no kept step)
-  for (int col = threadIdx.x; col < H; col += blockDim.x) {
-    for (int tt = 0; tt < T; ++tt) part[tt * H + col] = dlang_s[tt * H + col];
+}
+
+// part[chunk, col] = the sum over the kept staged rows of chunk `chunk`
+// (`chunk_rows` rows of [T, N*P, *] slot-major scratch, `ld` floats each)
+// of column col, or with `gates` of gate column col (g*H + u, stored at
+// perm_col(g, u)), in ordered_column_sum's order.  Block (32 columns, 8 row
+// lanes).
+__global__ void recur_bwd_col_parts_kernel(const float* __restrict__ src,
+                                           int ld,
+                                           const int* __restrict__ slot_t,
+                                           float* __restrict__ part, int N,
+                                           int P, int T, int H, int width,
+                                           bool gates, int chunk_rows) {
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  const int M = N * P;
+  const int r0 = blockIdx.y * chunk_rows;
+  const int r1 = min(r0 + chunk_rows, slot_t[N * T] * M);
+  const int sc = col < width && gates ? perm_col(col / H, col % H) : col;
+  const float total = ordered_column_sum(
+      src, ld, sc, col < width, r0, r1,
+      [&](int r) { return slot_t[(r % M) / P * T + r / M] >= 0; });
+  if (threadIdx.y == 0 && col < width) {
+    part[(size_t)blockIdx.y * width + col] = total;
   }
 }
 
 }  // namespace
 
 // Returns a cudaError_t code; 0 is success.  The wrapper
-// (ops/recur_attn.py: recur_attn_bwd_cuda) allocates the outputs and the
-// scratch: wmt [4H, 2H], wpt [H, H], stage_xh [N, T, P, 2H], stage_c and
-// stage_hp [N, T, P, H], stage_g [N, T, P, 4H], stage_attn [N, T, P, T],
-// dhp [N, T, P, H], colsum [N, T, 4H], lang_part [N, tiles, T, H] and
-// partials (max(split_wm * 2H * 4H, split_wp * H * H) floats).  tile/kc
-// are recur_geometry's, for the staging forward and the sweep alike.
-// Every pointer 16-byte aligned.
+// (ops/recur_attn.py: recur_attn_bwd_cuda, recur_bwd_geometry) allocates the
+// outputs and the scratch: wmp [2Hp, 4Hp], wpp [Hp, Hp], langp [N, T, Hp],
+// slot_t int [N*T + 2], stage_xh [T, N*P, 2Hp], stage_c, stage_hp and
+// stage_dhp [T, N*P, Hp], stage_g [T, N*P, 4Hp], stage_attn [T, N*P, T], dx
+// and dc [N*P, Hp], lang_part [N, ceil(P / attn_rows), T, Hp] and `part`
+// (the largest of splits_wm*2Hp*4Hp, splits_wp*Hp*Hp and col_chunks*4H
+// floats).  Hp is H rounded up to a multiple of 128; attn_rows pixel rows
+// per attention block; col_chunks row chunks of the bias sums.  Every
+// pointer 16-byte aligned.
 extern "C" int recur_attn_bwd(
     const float* h0, const float* lang, const float* wp, const float* bp,
     const float* wm, const float* bm, const int* valid, const float* gout,
     float* dh0, float* dlang, float* dwp, float* dbp, float* dwm, float* dbm,
-    float* wmt, float* wpt, float* stage_xh, float* stage_c, float* stage_g,
-    float* stage_hp, float* stage_attn, float* dhp, float* colsum,
-    float* lang_part, float* partials, int N, int P, int H, int T, int tile,
-    int kc, int split_wm, int split_wp, void* stream) {
-  const int threads = (H / 2) * (tile / kPixelsPerThread);
-  if (N <= 0 || N > 65535 || P <= 0 || T <= 0 || T > kMaxT || H <= 0 ||
-      H % 64 != 0 || tile <= 0 || tile % kPixelsPerThread != 0 ||
-      kc <= 0 || kc % 4 != 0 || threads > kThreads ||
-      threads % 32 != 0) {
+    float* wmp, float* wpp, float* langp, int* slot_t, float* stage_xh,
+    float* stage_c, float* stage_g, float* stage_hp, float* stage_attn,
+    float* stage_dhp, float* dx, float* dc, float* lang_part, float* part,
+    int N, int P, int H, int T, int Hp, int splits_wm, int splits_wp,
+    int attn_rows, int col_chunks, void* stream) {
+  const long long M = (long long)N * P;
+  if (N <= 0 || P <= 0 || T <= 0 || H <= 0 || Hp < H || Hp % kPad != 0 ||
+      N > 65535 || T > 65535 || M > 65535LL * SweepTile::ROWS ||
+      splits_wm <= 0 || splits_wp <= 0 || splits_wm > 65535 ||
+      splits_wp > 65535 || attn_rows <= 0 || col_chunks <= 0 ||
+      M * T + kBK * (long long)(splits_wm + splits_wp) >= (1LL << 31)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int H2 = 2 * H, H4 = 4 * H;
+  const int H4p = 4 * Hp, Mi = (int)M;
+  const int attn_blocks = (P + attn_rows - 1) / attn_rows;
+  const int soft_smem = 4 * (T * Hp + kWarps * (Hp + T));
+  const int attn_smem = 4 * (T * Hp + 2 * attn_rows * (Hp + T));
+  int rc = set_smem(recur_bwd_proj_kernel, ProjTile::BYTES);
+  if (rc == 0) rc = set_smem(recur_bwd_gates_kernel, FwdTile::BYTES);
+  if (rc == 0) rc = set_smem(recur_bwd_sweep_kernel, SweepTile::BYTES);
+  if (rc == 0) rc = set_smem(recur_bwd_dx_kernel, SweepTile::BYTES);
+  if (rc == 0) rc = set_smem(recur_bwd_softmax_kernel, soft_smem);
+  if (rc == 0) rc = set_smem(recur_bwd_attn_kernel, attn_smem);
+  if (rc == 0) rc = set_smem(lstm_rows_product_kernel, DwhTile::BYTES);
+  if (rc != 0) return rc;
 
-  int rc = launch_transpose(wm, wmt, H2, H4, s);
-  if (rc != 0) return rc;
-  rc = launch_transpose(wp, wpt, H, H, s);
-  if (rc != 0) return rc;
-  rc = recur_attn_fwd_stage(h0, lang, wp, bp, wm, bm, valid, stage_xh,
-                            stage_c, stage_g, stage_hp, stage_attn, N, P, H,
-                            T, tile, kc, stream);
-  if (rc != 0) return rc;
-
-  const size_t smem = (size_t)4 * (tile * H4 + 2 * kc * H2
-                                   + 3 * tile * H + 2 * tile * kMaxT
-                                   + 2 * T * H);
-  cudaError_t err = cudaFuncSetAttribute(
-      recur_attn_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // 1. layout
+  lstm_slots_kernel<<<1, kThreads, 0, s>>>(valid, slot_t, N, T);
+  const size_t n_wp = (size_t)Hp * H4p;
+  lstm_layout_kernel<<<blocks_of(n_wp, 256), 256, 0, s>>>(wm, wmp, H, Hp);
+  lstm_layout_kernel<<<blocks_of(n_wp, 256), 256, 0, s>>>(
+      wm + (size_t)H * 4 * H, wmp + n_wp, H, Hp);
+  recur_bwd_pad_kernel<<<blocks_of((size_t)Hp * Hp, 256), 256, 0, s>>>(
+      wp, H, H, wpp, Hp, Hp, Hp);
+  recur_bwd_pad_kernel<<<blocks_of((size_t)N * T * Hp, 256), 256, 0, s>>>(
+      lang, N * T, H, langp, N * T, Hp, Hp);
+  recur_bwd_pad_kernel<<<blocks_of((size_t)M * Hp, 256), 256, 0, s>>>(
+      h0, Mi, H, stage_xh + Hp, Mi, Hp, 2 * Hp);
+  cudaError_t err = cudaMemsetAsync(
+      lang_part, 0, sizeof(float) * (size_t)N * attn_blocks * T * Hp, s);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = (P + tile - 1) / tile;
-  recur_attn_sweep_kernel<<<dim3(tiles, N), threads, smem, s>>>(
-      gout, lang, wmt, wpt, valid, stage_c, stage_g, stage_hp, stage_attn,
-      dhp, dh0, lang_part, P, H, T, tile, kc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
 
-  // d_Wm = sum of [x, h_prev]^T dgates; d_Wp = sum of h_prev^T dhp; every
-  // kept step from slot 0 (h0 is not 0)
-  rc = launch_rows_product(stage_xh, H2, H2, stage_g, H4, H4, valid, dwm,
-                           partials, N, P, T, 0, split_wm, s);
-  if (rc != 0) return rc;
-  rc = launch_rows_product(stage_xh + H, H2, H, dhp, H, H, valid, dwp,
-                           partials, N, P, T, 0, split_wp, s);
-  if (rc != 0) return rc;
-  // d_bm, d_bp: per-step column sums, then the N*T steps in order
-  rc = launch_column_sums(stage_g, valid, colsum, N, P, H4, T, s);
-  if (rc != 0) return rc;
-  rc = launch_sum_rows(colsum, dbm, N * T, H4, 1, s);
-  if (rc != 0) return rc;
-  rc = launch_column_sums(dhp, valid, colsum, N, P, H, T, s);
-  if (rc != 0) return rc;
-  rc = launch_sum_rows(colsum, dbp, N * T, H, 1, s);
-  if (rc != 0) return rc;
-  // d_lang[n] = the tiles' partials in tile order
-  return launch_sum_rows(lang_part, dlang, tiles, T * H, N, s);
+  // 2. staging forward
+  const dim3 proj_grid(Hp / ProjTile::COLS, blocks_of(M, ProjTile::ROWS));
+  const dim3 attn_grid(attn_blocks, N);
+  const dim3 gates_grid(H4p / FwdTile::COLS, blocks_of(M, FwdTile::ROWS));
+  for (int k = 0; k < T; ++k) {
+    recur_bwd_proj_kernel<<<proj_grid, kThreads, ProjTile::BYTES, s>>>(
+        stage_xh, wpp, bp, slot_t, stage_hp, N, P, H, Hp, T, k);
+    recur_bwd_softmax_kernel<<<attn_grid, kThreads, soft_smem, s>>>(
+        stage_hp, langp, slot_t, stage_attn, stage_xh, N, P, Hp, T, k,
+        attn_rows);
+    recur_bwd_gates_kernel<<<gates_grid, kThreads, FwdTile::BYTES, s>>>(
+        stage_xh, wmp, bm, slot_t, stage_c, stage_g, N, P, H, Hp, T, k);
+  }
+
+  // 3. reverse sweep
+  const dim3 sweep_grid(Hp / SweepTile::COLS, blocks_of(M, SweepTile::ROWS));
+  for (int k = T - 1; k >= -1; --k) {
+    recur_bwd_sweep_kernel<<<sweep_grid, kThreads, SweepTile::BYTES, s>>>(
+        gout, wmp, wpp, slot_t, stage_c, stage_g, stage_dhp, dc, dh0, N, P,
+        H, Hp, T, k);
+    if (k < 0) break;
+    recur_bwd_dx_kernel<<<sweep_grid, kThreads, SweepTile::BYTES, s>>>(
+        wmp, slot_t, stage_g, dx, N, P, Hp, T, k);
+    recur_bwd_attn_kernel<<<attn_grid, kThreads, attn_smem, s>>>(
+        dx, stage_hp, stage_attn, langp, slot_t, stage_dhp, lang_part, N, P,
+        Hp, T, k, attn_rows);
+  }
+
+  // 4. reductions
+  lstm_rows_product_kernel<<<dim3(H4p / DwhTile::COLS, 2 * Hp / DwhTile::ROWS,
+                                  splits_wm),
+                             kThreads, DwhTile::BYTES, s>>>(
+      stage_xh, 2 * Hp, stage_g, H4p, slot_t, part, N, P, T, 0);
+  lstm_weight_sum_kernel<<<blocks_of((size_t)8 * H * H, 256), 256, 0, s>>>(
+      part, dwm, H, Hp, 2, splits_wm);
+  lstm_rows_product_kernel<<<dim3(Hp / DwhTile::COLS, Hp / DwhTile::ROWS,
+                                  splits_wp),
+                             kThreads, DwhTile::BYTES, s>>>(
+      stage_xh + Hp, 2 * Hp, stage_dhp, Hp, slot_t, part, N, P, T, 0);
+  lstm_ordered_sum_kernel<<<dim3(blocks_of((size_t)H * H, 256), 1), 256, 0,
+                            s>>>(part, dwp, (size_t)Hp * Hp, splits_wp, H, H,
+                                 Hp);
+  const int chunk_rows = (int)((M * T + col_chunks - 1) / col_chunks);
+  recur_bwd_col_parts_kernel<<<dim3(blocks_of(4 * (size_t)H, 32), col_chunks),
+                               dim3(32, 8), 0, s>>>(
+      stage_g, H4p, slot_t, part, N, P, T, H, 4 * H, true, chunk_rows);
+  lstm_ordered_sum_kernel<<<dim3(blocks_of(4 * (size_t)H, 256), 1), 256, 0,
+                            s>>>(part, dbm, (size_t)4 * H, col_chunks, 1,
+                                 4 * H, 4 * H);
+  recur_bwd_col_parts_kernel<<<dim3(blocks_of(H, 32), col_chunks),
+                               dim3(32, 8), 0, s>>>(
+      stage_dhp, Hp, slot_t, part, N, P, T, H, H, false, chunk_rows);
+  lstm_ordered_sum_kernel<<<dim3(blocks_of(H, 256), 1), 256, 0, s>>>(
+      part, dbp, (size_t)H, col_chunks, 1, H, H);
+  lstm_ordered_sum_kernel<<<dim3(blocks_of((size_t)T * H, 256), N), 256, 0,
+                            s>>>(lang_part, dlang, (size_t)T * Hp,
+                                 attn_blocks, T, H, Hp);
+  return (int)cudaGetLastError();
 }

@@ -13,14 +13,11 @@
 //     h' = sig(o)*tanh(c');  c, h keep their old values where valid[n, t] == 0
 //
 // and the final h [N, P, H] is written.  The softmax is not masked (pad
-// rows of lang take weight).  This kernel takes w == H (the RecurAttn
-// configuration sets both to 256), H a multiple of 64 up to 512 and
-// T <= 16.  Pure f32: no tensor cores.
-//
-// Instantiated with kStage it is the first pass of the backward kernel
-// (csrc/recur_attn_bwd.cu): for the k-th valid step of batch row n it also
-// writes to scratch slot k the step's [x, h_prev] (the input rows of the
-// gate product), c_prev, the pre-activation gates, h_proj and attn.
+// rows of lang take weight), so T is never padded.  This kernel takes w == H
+// (the RecurAttn configuration sets both to 256), H a multiple of 64 up to
+// 512 and any T whose lang[n] and logits fit in shared memory with the rest
+// (ops/recur_attn.py: recur_geometry; T <= 63 at H = 256, T <= 32 at
+// H = 512).  Pure f32: no tensor cores.
 //
 // Design.  Unlike B1 there is no pixel term: every step's input depends on
 // h, so all five products run inside the kernel each step.  One block owns
@@ -28,12 +25,12 @@
 //   * Shared memory holds two [tile, w + H] buffers with the gate product's
 //     input row [x, h] (the step reads h from one and writes the new h into
 //     the other), c, h_proj, lang[n] (resident for the whole run: T x w,
-//     15 KB at the RecurAttn shape) and two weight stages of kc*4H floats.
-//     175 KB at H = 256.
+//     15 KB at the RecurAttn shape), the [tile, T] logits and two weight
+//     stages of kc*4H floats: 176 KB at H = 256, T = 15.
 //   * Per kept step: (A) h_proj = h @ Wp + bp with Wp streamed in chunks of
 //     4*kc rows; (B) one warp per pixel row computes the T logits (each a
-//     dot product over w split across the lanes and summed with shuffles,
-//     so every lane holds every logit), the softmax, and x = attn @ lang,
+//     dot product over w split across the lanes and summed with shuffles)
+//     into shared memory, the softmax over them, and x = attn @ lang,
 //     which goes into the x part of the current input row; (C) gates =
 //     [x, h] @ Wm + bm with Wm streamed in chunks of kc rows, then the cell.
 //     All weight chunks of a step, Wp's then Wm's, go through one pair of
@@ -50,8 +47,9 @@
 // (0.597 M at H = w = 256, T = 15): 77 GFLOP at the RecurAttn shape
 // (P = 9216, 7 kept steps), 1.15 ms at 67 TFLOP/s; the bytes it must move
 // (h0 read, h written) take 0.006 ms.  Every block streams Wp (256 KB) and
-// Wm (2 MB) from L2 each step.  wgmma in TF32 or bf16 and TMA are later
-// work.
+// Wm (2 MB) from L2 each step.  Its redesign on the tensor-core machinery
+// of csrc/lstm_tc.cuh, as B6's staging forward (csrc/recur_attn_bwd.cu)
+// runs the same recurrence, is later work.
 
 #include "common.cuh"
 
@@ -59,9 +57,7 @@ namespace {
 
 constexpr int kPixelsPerThread = 8;    // PP
 constexpr int kThreads = 256;
-constexpr int kMaxT = 16;
 
-template <bool kStage>
 __global__ void __launch_bounds__(kThreads)
 recur_attn_fwd_kernel(const float* __restrict__ h0,     // [N, P, H]
                       const float* __restrict__ lang,   // [N, T, H]
@@ -70,12 +66,7 @@ recur_attn_fwd_kernel(const float* __restrict__ h0,     // [N, P, H]
                       const float* __restrict__ wm,     // [2H, 4H]
                       const float* __restrict__ bm,     // [4H]
                       const int* __restrict__ valid,    // [N, T]
-                      float* __restrict__ out,          // [N, P, H] (!kStage)
-                      float* __restrict__ stage_xh,     // [N, T, P, 2H]
-                      float* __restrict__ stage_c,      // [N, T, P, H]
-                      float* __restrict__ stage_g,      // [N, T, P, 4H]
-                      float* __restrict__ stage_hp,     // [N, T, P, H]
-                      float* __restrict__ stage_attn,   // [N, T, P, T]
+                      float* __restrict__ out,          // [N, P, H]
                       int P, int H, int T, int tile, int kc) {
   constexpr int PP = kPixelsPerThread;
   extern __shared__ float4 smem4[];
@@ -85,7 +76,8 @@ recur_attn_fwd_kernel(const float* __restrict__ h0,     // [N, P, H]
   float* const c_s = xh_s + 2 * tile * H2;        // [tile, H]
   float* const hp_s = c_s + tile * H;             // [tile, H]
   float* const lang_s = hp_s + tile * H;          // [T, H]
-  float* const w_stages = lang_s + T * H;         // 2 x [kc * 4H]
+  float* const lg_s = lang_s + T * H;             // [tile, T]
+  float* const w_stages = lg_s + tile * T;        // 2 x [kc * 4H]
   const int stage_size = kc * H4;
 
   const int n = blockIdx.y;
@@ -96,8 +88,7 @@ recur_attn_fwd_kernel(const float* __restrict__ h0,     // [N, P, H]
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int n_warps = blockDim.x / 32;
 
-  const int* vrow = valid + n * T;
-  const int n_valid = valid_before(vrow, T, T);
+  const int n_valid = valid_before(valid + n * T, T, T);
   const int kp = 4 * kc;                          // Wp rows per chunk
   const int n_pc = (H + kp - 1) / kp;             // Wp chunks per step
   const int n_mc = (H2 + kc - 1) / kc;            // Wm chunks per step
@@ -117,14 +108,9 @@ recur_attn_fwd_kernel(const float* __restrict__ h0,     // [N, P, H]
   float acc[4][PP][2];            // (C) gate accumulators
   float pacc[PP][2];              // (A) h_proj accumulators
   int b = 0;                      // which xh buffer holds the current h
-  int slot = -1, t = -1;
   for (int it = 0; it < total; ++it) {
     const int ch = it % per_step;
     if (ch == 0) {                // a new valid step
-      ++slot;
-      do {
-        ++t;
-      } while (vrow[t] == 0);
 #pragma unroll
       for (int q = 0; q < PP; ++q) pacc[q][0] = pacc[q][1] = 0.0f;
     }
@@ -174,50 +160,30 @@ recur_attn_fwd_kernel(const float* __restrict__ h0,     // [N, P, H]
         // (B) one warp per pixel row: logits, softmax, x = attn @ lang
         for (int r = warp; r < tile; r += n_warps) {
           const float* hr = hp_s + r * H;
-          float lg[kMaxT];
-#pragma unroll
-          for (int tt = 0; tt < kMaxT; ++tt) {
-            lg[tt] = 0.0f;
-            if (tt < T) {
-              float part = 0.0f;
-              for (int k = lane; k < H; k += 32) {
-                part = fmaf(hr[k], lang_s[tt * H + k], part);
-              }
-              lg[tt] = warp_sum(part);
+          float* lg = lg_s + r * T;
+          for (int tt = 0; tt < T; ++tt) {
+            float part = 0.0f;
+            for (int k = lane; k < H; k += 32) {
+              part = fmaf(hr[k], lang_s[tt * H + k], part);
             }
+            part = warp_sum(part);
+            if (lane == 0) lg[tt] = part;
           }
+          __syncwarp();
           float mx = lg[0];
-#pragma unroll
-          for (int tt = 1; tt < kMaxT; ++tt) {
-            if (tt < T) mx = fmaxf(mx, lg[tt]);
-          }
+          for (int tt = 1; tt < T; ++tt) mx = fmaxf(mx, lg[tt]);
           float sum = 0.0f;
-#pragma unroll
-          for (int tt = 0; tt < kMaxT; ++tt) {
-            if (tt < T) {
-              lg[tt] = expf(lg[tt] - mx);
-              sum += lg[tt];
-            }
-          }
-#pragma unroll
-          for (int tt = 0; tt < kMaxT; ++tt) lg[tt] = lg[tt] / sum;
-          const int p = p0 + r;
-          const size_t row = ((size_t)n * T + slot) * P + p;
+          for (int tt = 0; tt < T; ++tt) sum += expf(lg[tt] - mx);
+          __syncwarp();               // every lane has read the logits
+          for (int tt = lane; tt < T; tt += 32) lg[tt] = expf(lg[tt] - mx) / sum;
+          __syncwarp();
           float* xr = cur + r * H2;
           for (int col = lane; col < H; col += 32) {
             float x = 0.0f;
-#pragma unroll
-            for (int tt = 0; tt < kMaxT; ++tt) {
-              if (tt < T) x = fmaf(lg[tt], lang_s[tt * H + col], x);
+            for (int tt = 0; tt < T; ++tt) {
+              x = fmaf(lg[tt], lang_s[tt * H + col], x);
             }
             xr[col] = x;
-            if (kStage && p < P) stage_hp[row * H + col] = hr[col];
-          }
-          if (kStage && p < P && lane == 0) {
-#pragma unroll
-            for (int tt = 0; tt < kMaxT; ++tt) {
-              if (tt < T) stage_attn[row * T + tt] = lg[tt];
-            }
           }
         }
       }
@@ -259,20 +225,6 @@ recur_attn_fwd_kernel(const float* __restrict__ h0,     // [N, P, H]
           const int p = p0 + r0 + q;
           float2* cq = reinterpret_cast<float2*>(c_s + (r0 + q) * H + u0);
           const float2 c_old = *cq;
-          const float* in = cur + (r0 + q) * H2;
-          if (kStage && p < P) {
-            const size_t row = ((size_t)n * T + slot) * P + p;
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-              *reinterpret_cast<float2*>(stage_g + row * H4 + g * H + u0) =
-                  make_float2(acc[g][q][0], acc[g][q][1]);
-            }
-            *reinterpret_cast<float2*>(stage_c + row * H + u0) = c_old;
-            *reinterpret_cast<float2*>(stage_xh + row * H2 + u0) =
-                *reinterpret_cast<const float2*>(in + u0);
-            *reinterpret_cast<float2*>(stage_xh + row * H2 + H + u0) =
-                *reinterpret_cast<const float2*>(in + H + u0);
-          }
           float cn[2], hn[2];
 #pragma unroll
           for (int u = 0; u < 2; ++u) {
@@ -289,7 +241,6 @@ recur_attn_fwd_kernel(const float* __restrict__ h0,     // [N, P, H]
     }
   }
 
-  if constexpr (kStage) return;   // the staging pass writes no final h
   __syncthreads();
   const float* fin = xh_s + b * tile * H2 + H;
 #pragma unroll
@@ -302,59 +253,32 @@ recur_attn_fwd_kernel(const float* __restrict__ h0,     // [N, P, H]
   }
 }
 
-template <bool kStage>
-int launch(const float* h0, const float* lang, const float* wp,
-           const float* bp, const float* wm, const float* bm,
-           const int* valid, float* out, float* stage_xh, float* stage_c,
-           float* stage_g, float* stage_hp, float* stage_attn, int N, int P,
-           int H, int T, int tile, int kc, void* stream) {
-  const int threads = (H / 2) * (tile / kPixelsPerThread);
-  if (N <= 0 || N > 65535 || P <= 0 || T <= 0 || T > kMaxT || H <= 0 ||
-      H % 64 != 0 || tile <= 0 || tile % kPixelsPerThread != 0 || kc <= 0 ||
-      kc % 4 != 0 || threads > kThreads || threads % 32 != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const size_t smem = (size_t)4 * (2 * tile * 2 * H + 2 * tile * H + T * H
-                                   + 2 * kc * 4 * H);
-  cudaError_t err = cudaFuncSetAttribute(
-      recur_attn_fwd_kernel<kStage>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((P + tile - 1) / tile, N);
-  recur_attn_fwd_kernel<kStage>
-      <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          h0, lang, wp, bp, wm, bm, valid, out, stage_xh, stage_c, stage_g,
-          stage_hp, stage_attn, P, H, T, tile, kc);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 // Returns a cudaError_t code; 0 is success.  The wrapper
 // (ops/recur_attn.py: recur_geometry) picks `tile` (pixels per block) and
-// `kc` (Wm rows per shared-memory chunk, a multiple of 4); every pointer
-// 16-byte aligned.
+// `kc` (Wm rows per shared-memory chunk, a multiple of 4) and checks that
+// the shared memory fits; every pointer 16-byte aligned.
 extern "C" int recur_attn_fwd(const float* h0, const float* lang,
                               const float* wp, const float* bp,
                               const float* wm, const float* bm,
                               const int* valid, float* out, int N, int P,
                               int H, int T, int tile, int kc, void* stream) {
-  return launch<false>(h0, lang, wp, bp, wm, bm, valid, out, nullptr, nullptr,
-                       nullptr, nullptr, nullptr, N, P, H, T, tile, kc,
-                       stream);
-}
-
-// The staging forward of the backward kernel (csrc/recur_attn_bwd.cu):
-// writes the stage tensors only.
-extern "C" int recur_attn_fwd_stage(const float* h0, const float* lang,
-                                    const float* wp, const float* bp,
-                                    const float* wm, const float* bm,
-                                    const int* valid, float* stage_xh,
-                                    float* stage_c, float* stage_g,
-                                    float* stage_hp, float* stage_attn, int N,
-                                    int P, int H, int T, int tile, int kc,
-                                    void* stream) {
-  return launch<true>(h0, lang, wp, bp, wm, bm, valid, nullptr, stage_xh,
-                      stage_c, stage_g, stage_hp, stage_attn, N, P, H, T,
-                      tile, kc, stream);
+  const int threads = (H / 2) * (tile / kPixelsPerThread);
+  if (N <= 0 || N > 65535 || P <= 0 || T <= 0 || H <= 0 || H % 64 != 0 ||
+      tile <= 0 || tile % kPixelsPerThread != 0 || kc <= 0 || kc % 4 != 0 ||
+      threads > kThreads || threads % 32 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const size_t smem = (size_t)4 * (2 * tile * 2 * H + 2 * tile * H + T * H
+                                   + tile * T + 2 * kc * 4 * H);
+  cudaError_t err = cudaFuncSetAttribute(
+      recur_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((P + tile - 1) / tile, N);
+  recur_attn_fwd_kernel<<<grid, threads, smem,
+                          static_cast<cudaStream_t>(stream)>>>(
+      h0, lang, wp, bp, wm, bm, valid, out, P, H, T, tile, kc);
+  return (int)cudaGetLastError();
 }

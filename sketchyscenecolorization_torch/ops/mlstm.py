@@ -22,7 +22,11 @@ same functions as Python loops of ``torch.matmul``, also the kernels' test
 oracles); a CUDA tensor goes through ``mlstm_cuda``, ``mlstm_bwd_cuda``,
 ``mlstm_attn_cuda`` and ``mlstm_attn_bwd_cuda``, which launch the
 hand-written kernels B1 and B3 (``csrc/mlstm_fwd.cu``) and B2 and B4
-(``csrc/mlstm_bwd.cu``) or raise.
+(``csrc/mlstm_bwd.cu``) or raise.  B1, B2 and B4 run on the tensor cores
+through ``csrc/lstm_tc.cuh`` and take any H (padded inside to Hp, a
+multiple of 128); B3 takes H up to 1024, each gate block zero-padded here
+to a multiple of 4 (``pad_gates``), which is exact: a padded unit's gates
+are 0, so its c and h stay 0.
 
 This module also builds and loads the one kernel library of the port:
 ``SOURCES`` (these two files and the RecurAttn kernels B5 and B6 of
@@ -48,16 +52,17 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("mlstm_fwd.cu", "mlstm_bwd.cu",
                              "recur_attn_fwd.cu", "recur_attn_bwd.cu"))
-HEADERS = (os.path.join(_PKG_DIR, "csrc", "common.cuh"),)
+HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
+                for name in ("common.cuh", "lstm_tc.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 LIBRARY = os.path.join(BUILD_DIR, "libmlstm.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
-MAX_HIDDEN = 1024
+MAX_HIDDEN = 1024                 # B3 (csrc/mlstm_fwd.cu)
 SMEM_BYTES = 232448               # shared memory a block may use on sm_90
 SMS = 132                         # streaming multiprocessors of an H100
-# csrc/mlstm_bwd.cu: hidden size padded to a multiple of BWD_PAD; its
+# csrc/lstm_tc.cuh: hidden size padded to a multiple of BWD_PAD; its
 # products stage K BWD_BK deep; B4's d_attn partials cover ATTN_ROWS pixel
 # rows each
 BWD_PAD, BWD_BK, ATTN_ROWS = 128, 32, 64
@@ -184,27 +189,44 @@ def mlstm_attn_bwd_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
     return _bwd_plain(pixel_term, step_term, w_h, valid, g, attn=attn)
 
 
+def pad_gates(x: torch.Tensor, hidden: int, width: int) -> torch.Tensor:
+    """[..., 4*hidden] -> [..., 4*width]: each of the four gate blocks
+    zero-padded from ``hidden`` to ``width`` columns (``x`` itself when they
+    are equal)."""
+    if width == hidden:
+        return x
+    blocks = x.reshape(*x.shape[:-1], 4, hidden)
+    return torch.nn.functional.pad(blocks, (0, width - hidden)).reshape(
+        *x.shape[:-1], 4 * width)
+
+
+def pad_w_h(w_h: torch.Tensor, width: int) -> torch.Tensor:
+    """W_h [H, 4H] -> [width, 4*width]: zero rows and zero gate columns for
+    the padded units."""
+    hidden = w_h.shape[0]
+    return pad_gates(torch.nn.functional.pad(w_h, (0, 0, 0, width - hidden)),
+                     hidden, width)
+
+
+def padded_hidden(hidden: int, multiple: int = BWD_PAD) -> int:
+    """H rounded up to a multiple of ``multiple`` (by default BWD_PAD, the
+    tensor-core kernels' Hp)."""
+    return -(-hidden // multiple) * multiple
+
+
 def launch_geometry(hidden: int):
-    """(tile, kc, threads, shared-memory bytes) of the kernel for hidden
-    size H: ``tile`` pixels per block, W_h streamed in chunks of ``kc`` rows;
-    each thread owns 2 units of 8 pixels; shared memory holds h twice, c
-    and two W_h chunks (``csrc/mlstm_fwd.cu``)."""
-    if hidden % 4 or not 0 < hidden <= MAX_HIDDEN:
-        raise ValueError(f"mlstm_cuda: hidden size {hidden} must be a "
-                         f"multiple of 4 up to {MAX_HIDDEN}")
-    tile, kc = (16, 8) if hidden <= 512 else (8, 4)
-    threads = hidden // 2 * tile // 8
-    return tile, kc, threads, 4 * hidden * (3 * tile + 8 * kc)
-
-
-def product_splits(p: int, rows: int, cols: int) -> int:
-    """Pixel ranges of the tiled sum-of-outer-products kernel
-    (``csrc/common.cuh``, ``rows_product_kernel``, which B6 uses) for a
-    [rows, cols] output: more than one when its 64x64 output tiles alone
-    would give fewer than 4 blocks per SM; each range writes a partial,
-    summed in a fixed order afterwards."""
-    blocks = -(-rows // 64) * -(-cols // 64)
-    return max(1, min(-(-4 * SMS // blocks), p // 128, 16))
+    """(tile, kc, threads, shared-memory bytes) of B3 (``csrc/mlstm_fwd.cu``)
+    for hidden size H, padded to a multiple of 4: ``tile`` pixels per block,
+    W_h streamed in chunks of ``kc`` rows; each thread owns 2 units of 8
+    pixels; shared memory holds h twice, c and two W_h chunks.  Raises past
+    MAX_HIDDEN, which no configuration of the model reaches."""
+    if not 0 < hidden <= MAX_HIDDEN:
+        raise ValueError(f"mlstm_attn_cuda: hidden size {hidden} must be "
+                         f"between 1 and {MAX_HIDDEN}")
+    width = padded_hidden(hidden, 4)
+    tile, kc = (16, 8) if width <= 512 else (8, 4)
+    threads = width // 2 * tile // 8
+    return tile, kc, threads, 4 * width * (3 * tile + 8 * kc)
 
 
 def product_smem(bm: int, bn: int, a_outer: bool, b_outer: bool,
@@ -228,24 +250,46 @@ BWD_TILES = ((128, 128, False, True, 3), (64, 64, False, False, 3),
 BWD_BLOCKS_PER_SM = (2, 3, 2)
 
 
+def fwd_geometry(rows: int, hidden: int):
+    """(Hp, shared-memory bytes) of B1 (``csrc/mlstm_fwd.cu``, the
+    tensor-core launch sequence of ``csrc/lstm_tc.cuh``) for ``rows`` = N*P
+    pixel rows: H padded to Hp, a multiple of 128, and the staging tile's
+    shared memory.  Raises on more than 65535 tiles of 128 rows."""
+    if hidden <= 0:
+        raise ValueError(f"mlstm_cuda: hidden size {hidden} must be positive")
+    if not 0 < rows <= 65535 * 128:
+        raise ValueError(f"mlstm_cuda: {rows} pixel rows (N*P) must be "
+                         f"between 1 and {65535 * 128}")
+    return padded_hidden(hidden), product_smem(*BWD_TILES[0])
+
+
+def rows_product_splits(rows: int, width_a: int, width_b: int,
+                        cap: int = 16) -> int:
+    """K ranges of the split-K sum-of-outer-products ``lstm_rows_product_
+    kernel`` (``csrc/lstm_tc.cuh``) for a [width_a, width_b] output over
+    ``rows`` = N*P pixel rows per slot: as many as fill the card in one wave
+    of its 128x128 tiles, at most ``cap`` and one per 64 rows."""
+    tiles = (width_a // 128) * (width_b // 128)
+    return max(1, min(BWD_BLOCKS_PER_SM[2] * SMS // tiles, cap, rows // 64))
+
+
 def bwd_geometry(rows: int, hidden: int):
     """(Hp, splits, shared-memory bytes) of the backward kernel
     (``csrc/mlstm_bwd.cu``) for ``rows`` = N*P pixel rows: H padded to Hp, a
     multiple of 128; the d_W_h product's K split into ``splits`` ranges
     (as many blocks as fit on the card in one wave with its 128x128 tiles;
     at most 16 and one per 64 rows); the largest dynamic shared memory of
-    its three products (BWD_TILES).  Raises on what the kernels do not
-    take: the forward's hidden sizes (``launch_geometry``, since the
-    backward gets the forward's inputs), and more than 65535 tiles of 64
+    its three products (BWD_TILES).  Raises on more than 65535 tiles of 64
     rows."""
-    launch_geometry(hidden)
+    if hidden <= 0:
+        raise ValueError(f"mlstm_bwd_cuda: hidden size {hidden} must be "
+                         "positive")
     if not 0 < rows <= 65535 * 64:
         raise ValueError(f"mlstm_bwd_cuda: {rows} pixel rows (N*P) must be "
                          f"between 1 and {65535 * 64}")
-    hp = -(-hidden // BWD_PAD) * BWD_PAD
-    tiles = (hp // 128) * (4 * hp // 128)
-    splits = max(1, min(BWD_BLOCKS_PER_SM[2] * SMS // tiles, 16, rows // 64))
-    return hp, splits, max(product_smem(*tile) for tile in BWD_TILES)
+    hp = padded_hidden(hidden)
+    return hp, rows_product_splits(rows, hp, 4 * hp), \
+        max(product_smem(*tile) for tile in BWD_TILES)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -269,33 +313,42 @@ def matmul_3xtf32_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def build() -> str:
-    """Compile ``SOURCES`` into one library for sm_90a (unless it is newer
-    than every source and header) and return nvcc's report (registers,
-    spills)."""
+    """Compile ``SOURCES`` for sm_90a, one ``nvcc`` per source, all started
+    together, and link them into one library (unless it is newer than every
+    source and header); return nvcc's report (registers, spills)."""
     if os.path.isfile(LIBRARY) and os.path.getmtime(LIBRARY) >= max(
             os.path.getmtime(src) for src in SOURCES + HEADERS):
         return ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, *SOURCES],
-                              capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objects = [os.path.join(tmp, os.path.basename(src) + ".o")
+                   for src in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(SOURCES, objects)]
+        report = ""
+        for src, proc in zip(SOURCES, procs):
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src}:\n{out}")
+            report += out
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+                               *objects], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCES}:\n{proc.stderr}")
-        os.replace(tmp, LIBRARY)   # atomic: concurrent builders never see
-    finally:                       # a half-written library
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return proc.stdout + proc.stderr
+            raise RuntimeError(f"nvcc failed linking {objects}:\n"
+                               f"{proc.stderr}")
+        os.replace(lib, LIBRARY)   # atomic: a concurrent build never sees
+    return report                  # a half-written library
 
 
 # C entry points of the library: (number of pointer arguments, number of
 # int arguments); each then takes the stream and returns a cudaError_t.
-_ENTRIES = {"mlstm_fwd": (5, 6), "mlstm_attn_fwd": (6, 6),
+_ENTRIES = {"mlstm_fwd": (8, 5), "mlstm_attn_fwd": (6, 6),
             "mlstm_bwd": (15, 6), "mlstm_attn_bwd": (18, 6),
-            "recur_attn_fwd": (8, 6), "recur_attn_bwd": (25, 8)}
+            "recur_attn_fwd": (8, 6), "recur_attn_bwd": (28, 9)}
 
 
 def library() -> ctypes.CDLL:
@@ -373,28 +426,26 @@ def _check_cuda_inputs(name: str, pixel_term, step_term, w_h, valid,
     return n, p, hidden, t_max
 
 
-def _fwd_cuda(pixel_term, step_term, w_h, valid, attn=None):
-    name = "mlstm_cuda" if attn is None else "mlstm_attn_cuda"
-    n, p, hidden, t_max = _check_cuda_inputs(name, pixel_term, step_term,
-                                             w_h, valid, attn=attn)
-    tile, kc, _, _ = launch_geometry(hidden)
-    out = torch.empty((n, p, hidden), dtype=torch.float32,
-                      device=pixel_term.device)
-    head = (pixel_term, step_term, w_h, valid)
-    if attn is not None:
-        head += (attn,)
-    launch("mlstm_fwd" if attn is None else "mlstm_attn_fwd",
-           pixel_term.device, *head, out, n, p, hidden, t_max, tile, kc)
-    return out
-
-
 def mlstm_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
                w_h: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Launch ``csrc/mlstm_fwd.cu`` (B1) on the current stream.  Takes f32
-    pixel/step/W_h and int32 ``valid``, contiguous and 16-byte aligned on one
-    CUDA device, H a multiple of 4 up to 1024; raises on anything else.
+    """Launch B1 (``csrc/mlstm_fwd.cu``) on the current stream: the slot
+    table, the permuted W_h and T tensor-core launches of the shared stage
+    kernel.  Takes f32 pixel/step/W_h and int32 ``valid``, contiguous and
+    16-byte aligned on one CUDA device, any H; raises on anything else.
+    Allocates the permuted W_h [Hp, 4Hp], the slot table and the running h
+    and c [2, 2, N*P, Hp].  Never synchronises with the host.
     ``mlstm_cuda.launches`` counts launches."""
-    out = _fwd_cuda(pixel_term, step_term, w_h, valid)
+    n, p, hidden, t_max = _check_cuda_inputs("mlstm_cuda", pixel_term,
+                                             step_term, w_h, valid)
+    hp, _ = fwd_geometry(n * p, hidden)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=pixel_term.device)
+
+    out = empty(n, p, hidden)
+    launch("mlstm_fwd", pixel_term.device, pixel_term, step_term, w_h, valid,
+           out, empty(hp, 4 * hp), empty(n * t_max + 2, dtype=torch.int32),
+           empty(2, 2, n * p, hp), n, p, hidden, t_max, hp)
     mlstm_cuda.launches += 1
     return out
 
@@ -405,13 +456,23 @@ mlstm_cuda.launches = 0
 def mlstm_attn_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
                     w_h: torch.Tensor, valid: torch.Tensor,
                     attn: torch.Tensor) -> torch.Tensor:
-    """Launch B3, the word-attention instance of ``csrc/mlstm_fwd.cu``:
-    acc [N, P, H].  Takes what ``mlstm_cuda`` takes plus f32 ``attn``
-    [N, T]; raises on anything else.  ``mlstm_attn_cuda.launches`` counts
-    launches."""
-    out = _fwd_cuda(pixel_term, step_term, w_h, valid, attn)
+    """Launch B3 (``csrc/mlstm_fwd.cu``): acc [N, P, H].  Takes what
+    ``mlstm_cuda`` takes, H up to MAX_HIDDEN, plus f32 ``attn`` [N, T];
+    raises on anything else.  Each gate block is zero-padded to a multiple
+    of 4 units when H is not one (``pad_gates``), and acc sliced back.
+    ``mlstm_attn_cuda.launches`` counts launches."""
+    n, p, hidden, t_max = _check_cuda_inputs("mlstm_attn_cuda", pixel_term,
+                                             step_term, w_h, valid, attn=attn)
+    tile, kc, _, _ = launch_geometry(hidden)
+    width = padded_hidden(hidden, 4)
+    out = torch.empty((n, p, width), dtype=torch.float32,
+                      device=pixel_term.device)
+    launch("mlstm_attn_fwd", pixel_term.device,
+           pad_gates(pixel_term, hidden, width),
+           pad_gates(step_term, hidden, width), pad_w_h(w_h, width), valid,
+           attn, out, n, p, width, t_max, tile, kc)
     mlstm_attn_cuda.launches += 1
-    return out
+    return out if width == hidden else out[..., :hidden].contiguous()
 
 
 mlstm_attn_cuda.launches = 0
@@ -472,10 +533,10 @@ def mlstm_attn_bwd_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
                         attn: torch.Tensor, g: torch.Tensor):
     """Launch B4, the word-attention instance of ``csrc/mlstm_bwd.cu``:
     (d_pixel, d_step, d_w_h, d_attn [N, T]) of acc.  Takes what
-    ``mlstm_attn_cuda`` takes plus f32 ``g`` [N, P, H]; raises on anything
-    else.  Allocates ``mlstm_bwd_cuda``'s scratch and the d_attn partials
-    [N, T, ceil(P / ATTN_ROWS)].  ``mlstm_attn_bwd_cuda.launches`` counts
-    launches."""
+    ``mlstm_bwd_cuda`` takes (any H: it pads inside, as B2 does) plus f32
+    ``attn`` [N, T]; raises on anything else.  Allocates
+    ``mlstm_bwd_cuda``'s scratch and the d_attn partials [N, T, ceil(P /
+    ATTN_ROWS)].  ``mlstm_attn_bwd_cuda.launches`` counts launches."""
     grads = _bwd_cuda(pixel_term, step_term, w_h, valid, g, attn)
     mlstm_attn_bwd_cuda.launches += 1
     return grads

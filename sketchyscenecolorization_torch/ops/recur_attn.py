@@ -20,8 +20,12 @@ and ``recur_attn_bwd_plain`` (also the kernels' test oracles); a CUDA
 tensor goes through ``recur_attn_cuda`` and ``recur_attn_bwd_cuda``, which
 launch the hand-written kernels B5 (``csrc/recur_attn_fwd.cu``) and B6
 (``csrc/recur_attn_bwd.cu``) of the library ``ops/mlstm.py`` builds, or
-raise.  The kernels take w == H (the RecurAttn config sets both to 256), H a
-multiple of 64 up to 512 and T <= 16.
+raise.  Both take w == H (the RecurAttn config sets both to 256) and any T
+whose lang[n] fits in shared memory (``recur_geometry``,
+``recur_bwd_geometry``); T is never padded, since the softmax runs over all
+T.  B5 takes H a multiple of 64 up to 512; B6 runs on the tensor cores
+through ``csrc/lstm_tc.cuh`` and takes any H (padded inside to Hp, a
+multiple of 128).
 """
 from __future__ import annotations
 
@@ -30,9 +34,12 @@ from typing import Optional
 import torch
 
 from .lstm import lstm_cell
-from .mlstm import check_cuda_tensors, launch, product_splits
+from .mlstm import (BWD_BK, SMEM_BYTES, check_cuda_tensors, launch,
+                    padded_hidden, rows_product_splits)
 
-MAX_STEPS = 16                    # kMaxT of csrc/recur_attn_*.cu
+# csrc/recur_attn_bwd.cu: the bias sums add the staged rows in this many
+# chunks at most, each chunk at least COL_ROWS rows
+COL_CHUNKS, COL_ROWS = 512, 512
 
 
 def recur_attn_plain(h0: torch.Tensor,      # [N, P, H] f32
@@ -112,23 +119,61 @@ def recur_attn_bwd_plain(h0, lang, wp, bp, wm, bm, valid,
 
 
 def recur_geometry(hidden: int, t_max: int):
-    """(tile, kc, threads, forward shared-memory bytes, sweep shared-memory
-    bytes) of ``csrc/recur_attn_fwd.cu`` and the reverse sweep of
-    ``csrc/recur_attn_bwd.cu``: a thread owns 2 units of 8 pixels; the
-    forward streams Wp in chunks of 4*kc rows and Wm in chunks of kc rows,
-    the sweep Wm^T in chunks of kc rows and Wp^T in chunks of 2*kc."""
+    """(tile, kc, threads, shared-memory bytes) of B5
+    (``csrc/recur_attn_fwd.cu``): a thread owns 2 units of 8 pixels; shared
+    memory holds two [tile, 2H] input rows, c, h_proj, lang[n] [T, H], the
+    [tile, T] logits and two weight stages (Wp streamed in chunks of 4*kc
+    rows, Wm in chunks of kc rows).  Raises on H that is not a multiple of
+    64 up to 512, and on a T whose shared memory does not fit (T <= 63 at
+    H = 256, T <= 32 at H = 512)."""
     if hidden % 64 or not 64 <= hidden <= 512:
         raise ValueError(f"recur_attn_cuda: hidden size {hidden} must be a "
                          "multiple of 64 up to 512")
-    if not 0 < t_max <= MAX_STEPS:
-        raise ValueError(f"recur_attn_cuda: T={t_max} must be 1..{MAX_STEPS}")
     tile, kc = (16, 8) if hidden <= 256 else (8, 4)
     threads = hidden // 2 * tile // 8
-    fwd = 4 * (2 * tile * 2 * hidden + 2 * tile * hidden + t_max * hidden
-               + 2 * kc * 4 * hidden)
-    sweep = 4 * (tile * 4 * hidden + 2 * kc * 2 * hidden + 3 * tile * hidden
-                 + 2 * tile * MAX_STEPS + 2 * t_max * hidden)
-    return tile, kc, threads, fwd, sweep
+    fixed = 4 * (2 * tile * 2 * hidden + 2 * tile * hidden
+                 + 2 * kc * 4 * hidden)
+    smem = fixed + 4 * t_max * (hidden + tile)
+    if t_max <= 0 or smem > SMEM_BYTES:
+        raise ValueError(
+            f"recur_attn_cuda: T={t_max} must be 1.."
+            f"{(SMEM_BYTES - fixed) // (4 * (hidden + tile))} at H={hidden} "
+            "(lang[n] and the logits in shared memory)")
+    return tile, kc, threads, smem
+
+
+def recur_bwd_geometry(rows: int, hidden: int, t_max: int):
+    """(Hp, d_Wm splits, d_Wp splits, attention rows, bias-sum chunks,
+    shared-memory bytes of the attention backward) of B6
+    (``csrc/recur_attn_bwd.cu``) for ``rows`` = N*P pixel rows: H padded to
+    Hp, a multiple of 128; the K splits of its two weight-gradient products
+    (``rows_product_splits``); the pixel rows of one block of its attention
+    kernels (32, or fewer where lang[n] [T, Hp], their dx and h_proj rows
+    and their attn and dlogits do not fit in shared memory); the row chunks
+    of its bias sums.  Raises on a T whose shared memory does not fit even
+    at 8 rows (T <= 198 at H = 256), and on more than 65535 tiles of 64
+    rows or 2^31 staged rows."""
+    if hidden <= 0 or t_max <= 0:
+        raise ValueError(f"recur_attn_bwd_cuda: H={hidden} and T={t_max} "
+                         "must be positive")
+    hp = padded_hidden(hidden)
+    splits = (rows_product_splits(rows, 2 * hp, 4 * hp),
+              rows_product_splits(rows, hp, hp, cap=32))
+    if not 0 < rows <= 65535 * 64 or \
+            rows * t_max + BWD_BK * sum(splits) >= 2 ** 31:
+        raise ValueError(f"recur_attn_bwd_cuda: {rows} pixel rows (N*P) at "
+                         f"T={t_max} do not fit")
+    for attn_rows in (32, 16, 8):
+        smem = 4 * (t_max * hp + 2 * attn_rows * (hp + t_max))
+        if smem <= SMEM_BYTES:
+            break
+    else:
+        raise ValueError(
+            f"recur_attn_bwd_cuda: T={t_max} must be 1.."
+            f"{(SMEM_BYTES // 4 - 16 * hp) // (hp + 16)} at Hp={hp} (lang[n] "
+            "in shared memory)")
+    chunks = max(1, min(COL_CHUNKS, rows * t_max // COL_ROWS))
+    return (hp, *splits, attn_rows, chunks, smem)
 
 
 def _check(name, h0, lang, wp, bp, wm, bm, valid, g=None):
@@ -150,7 +195,6 @@ def _check(name, h0, lang, wp, bp, wm, bm, valid, g=None):
             f"{tuple(valid.shape)} (the kernels take w == H)")
     if min(n, p) == 0 or n > 65535:
         raise ValueError(f"{name}: unsupported sizes N={n} P={p}")
-    recur_geometry(hidden, t_max)
     return n, p, hidden, t_max
 
 
@@ -163,7 +207,7 @@ def recur_attn_cuda(h0: torch.Tensor, lang: torch.Tensor, wp: torch.Tensor,
     ``recur_attn_cuda.launches`` counts launches."""
     n, p, hidden, t_max = _check("recur_attn_cuda", h0, lang, wp, bp, wm,
                                  bm, valid)
-    tile, kc, _, _, _ = recur_geometry(hidden, t_max)
+    tile, kc, _, _ = recur_geometry(hidden, t_max)
     out = torch.empty_like(h0)
     launch("recur_attn_fwd", h0.device, h0, lang, wp, bp, wm, bm, valid, out,
            n, p, hidden, t_max, tile, kc)
@@ -175,36 +219,43 @@ recur_attn_cuda.launches = 0
 
 
 def recur_attn_bwd_cuda(h0, lang, wp, bp, wm, bm, valid, g: torch.Tensor):
-    """Launch B6 (``csrc/recur_attn_bwd.cu``) on the current stream:
-    (d_h0, d_lang, d_wp, d_bp, d_wm, d_bm).  Takes what ``recur_attn_cuda``
-    takes plus f32 ``g`` [N, P, H]; raises on anything else.  Allocates the
-    scratch: the transposed weights, the staged forward (per valid step
-    [x, h_prev], c_prev, the gates (overwritten by their gradients),
-    h_proj and attn), dh_proj, column sums and the partials of the
-    reductions.  ``recur_attn_bwd_cuda.launches`` counts launches."""
+    """Launch B6 (``csrc/recur_attn_bwd.cu``) on the current stream: (d_h0,
+    d_lang, d_wp, d_bp, d_wm, d_bm).  Takes what ``recur_attn_cuda`` takes
+    (but any H, and a T up to ``recur_bwd_geometry``'s limit) plus f32 ``g``
+    [N, P, H]; raises on anything else.  Allocates the scratch of H padded
+    to Hp: the permuted Wm, padded Wp and lang, the slot table, the staged
+    forward ([x, h] [T, N*P, 2Hp]; c, h_proj and dh_proj [T, N*P, Hp]; the
+    gates, overwritten by their gradients, [T, N*P, 4Hp]; attn
+    [T, N*P, T]), dx and dc [N*P, Hp], the d_lang partials and the partials
+    of the weight and bias sums.  Never synchronises with the host.
+    ``recur_attn_bwd_cuda.launches`` counts launches."""
     n, p, hidden, t_max = _check("recur_attn_bwd_cuda", h0, lang, wp, bp, wm,
                                  bm, valid, g)
-    tile, kc, _, _, _ = recur_geometry(hidden, t_max)
-    h2, h4 = 2 * hidden, 4 * hidden
-    split_wm = product_splits(p, h2, h4)
-    split_wp = product_splits(p, hidden, hidden)
+    rows = n * p
+    hp, split_wm, split_wp, attn_rows, chunks, _ = recur_bwd_geometry(
+        rows, hidden, t_max)
 
-    def empty(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=h0.device)
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=h0.device)
 
     grads = (empty(n, p, hidden), empty(n, t_max, hidden),
-             empty(hidden, hidden), empty(hidden), empty(h2, h4), empty(h4))
-    scratch = (empty(h4, h2), empty(hidden, hidden),        # Wm^T, Wp^T
-               empty(n, t_max, p, h2), empty(n, t_max, p, hidden),
-               empty(n, t_max, p, h4), empty(n, t_max, p, hidden),
-               empty(n, t_max, p, t_max),    # staged [x, h], c, gates, hp, attn
-               empty(n, t_max, p, hidden),   # dh_proj
-               empty(n, t_max, h4),          # per-step column sums
-               empty(n, -(-p // tile), t_max, hidden),     # d_lang partials
-               empty(max(split_wm * h2 * h4, split_wp * hidden * hidden)))
+             empty(hidden, hidden), empty(hidden), empty(2 * hidden,
+                                                         4 * hidden),
+             empty(4 * hidden))
+    scratch = (empty(2 * hp, 4 * hp), empty(hp, hp),   # Wm permuted, Wp
+               empty(n, t_max, hp),                    # lang padded
+               empty(n * t_max + 2, dtype=torch.int32),          # slots
+               empty(t_max, rows, 2 * hp), empty(t_max, rows, hp),
+               empty(t_max, rows, 4 * hp), empty(t_max, rows, hp),
+               empty(t_max, rows, t_max),     # staged [x, h], c, gates, hp,
+               empty(t_max, rows, hp),        # attn, dhp
+               empty(rows, hp), empty(rows, hp),                 # dx, dc
+               empty(n, -(-p // attn_rows), t_max, hp),          # d_lang
+               empty(max(split_wm * 8 * hp * hp, split_wp * hp * hp,
+                         chunks * 4 * hidden)))
     launch("recur_attn_bwd", h0.device, h0, lang, wp, bp, wm, bm, valid, g,
-           *grads, *scratch, n, p, hidden, t_max, tile, kc, split_wm,
-           split_wp)
+           *grads, *scratch, n, p, hidden, t_max, hp, split_wm, split_wp,
+           attn_rows, chunks)
     recur_attn_bwd_cuda.launches += 1
     return grads
 

@@ -14,7 +14,13 @@ the tensor cores; ``tf32_round`` and ``matmul_3xtf32_plain`` repeat that
 arithmetic here: TF32 rounding on chosen bit patterns, and the 3xTF32
 product at the RMI step shape cut to 256 pixels within 1e-6 of float64
 (measured 4.8e-7, as plain f32's 5.5e-7) where one TF32 pass is off by
-2.9e-4 of the result's magnitude.
+2.9e-4 of the result's magnitude; the same at the products of B6.  The
+kernels take any H by zero padding (B1/B2/B4 and B6 to Hp, a multiple of
+128, inside; B3's wrapper each gate block to a multiple of 4): through the
+plain versions, the padded problem at H = 250 gives h and acc exactly at
+the width B3 pads to (252) and within 2e-7 at Hp = 256 (the sums run over
+K = 256 in another order), and every gradient within 1e-6 of its largest
+magnitude.
 
 jax is imported inside the parity test only, so that the card's test run
 (which has no jax, see README) can import this file."""
@@ -164,10 +170,69 @@ def test_bwd_geometry_refuses_unsupported_rows(rows):
 
 @pytest.mark.parametrize("hidden", [6, 1028])
 def test_launch_geometry_refuses_unsupported_hidden(hidden):
-    with pytest.raises(ValueError, match="multiple of 4"):
-        mlstm.launch_geometry(hidden)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        mlstm.bwd_geometry(64, hidden)
+    """B1, B2 and B4 take any H (padded to Hp inside); B3 takes any H up to
+    MAX_HIDDEN (each gate block padded to a multiple of 4 by its wrapper)
+    and refuses more, which no configuration of the model reaches."""
+    hp = mlstm.padded_hidden(hidden)
+    assert hp % mlstm.BWD_PAD == 0 and hidden <= hp < hidden + mlstm.BWD_PAD
+    assert mlstm.fwd_geometry(64, hidden)[0] == hp
+    assert mlstm.bwd_geometry(64, hidden)[0] == hp
+    if hidden <= mlstm.MAX_HIDDEN:
+        tile, _, threads, smem = mlstm.launch_geometry(hidden)
+        assert threads == mlstm.padded_hidden(hidden, 4) // 2 * tile // 8
+        assert smem <= mlstm.SMEM_BYTES
+    else:
+        with pytest.raises(ValueError, match="between 1 and"):
+            mlstm.launch_geometry(hidden)
+
+
+def _unpad_gates(x, hidden):
+    """[..., 4*width] -> [..., 4*hidden]: the first ``hidden`` columns of
+    each gate block (the inverse of ``mlstm.pad_gates``)."""
+    width = x.shape[-1] // 4
+    return x.reshape(*x.shape[:-1], 4, width)[..., :hidden].reshape(
+        *x.shape[:-1], 4 * hidden)
+
+
+def _padded(pixel, step, w_h, width):
+    return (mlstm.pad_gates(pixel, pixel.shape[-1] // 4, width),
+            mlstm.pad_gates(step, step.shape[-1] // 4, width),
+            mlstm.pad_w_h(w_h, width))
+
+
+@pytest.mark.parametrize("width", [252, 256])
+@pytest.mark.parametrize("variant", ["plain", "attn"])
+def test_zero_padding_to_any_width_is_exact(variant, width):
+    """The padding of C1 through the plain versions at H = 250: to B3's
+    multiple of 4 (252) and to the tensor-core kernels' Hp (256)."""
+    hidden, t = 250, 5
+    pixel, step, w_h = (torch.from_numpy(a)
+                        for a in _inputs(2, 12, hidden, t, seed=3))
+    w_h = w_h / 4                           # glorot-like scale at H = 250
+    valid = torch.from_numpy(_front_pad([[0, 0, 3, 4, 5], [1, 2, 0, 0, 0]]))
+    g = torch.from_numpy(np.random.RandomState(4).randn(2, 12, hidden)
+                         .astype(np.float32))
+    attn = torch.softmax(torch.from_numpy(
+        np.random.RandomState(5).randn(2, t).astype(np.float32)), -1)
+    extra = () if variant == "plain" else (attn,)
+    fwd, bwd = ((mlstm.mlstm_plain, mlstm.mlstm_bwd_plain)
+                if variant == "plain" else
+                (mlstm.mlstm_attn_plain, mlstm.mlstm_attn_bwd_plain))
+    padded = _padded(pixel, step, w_h, width)
+    got = fwd(*padded, valid, *extra)
+    assert not got[..., hidden:].any()      # padded units stay 0
+    want = fwd(pixel, step, w_h, valid, *extra)
+    torch.testing.assert_close(got[..., :hidden], want, rtol=0,
+                               atol=0 if width == 252 else 2e-7)
+    grads = bwd(*padded, valid, *extra,
+                torch.nn.functional.pad(g, (0, width - hidden)))
+    grads = (_unpad_gates(grads[0], hidden), _unpad_gates(grads[1], hidden),
+             _unpad_gates(grads[2][:hidden], hidden)) + grads[3:]
+    for name, a, b in zip(("d_pixel", "d_step", "d_w_h", "d_attn"), grads,
+                          bwd(pixel, step, w_h, valid, *extra, g)):
+        assert a.shape == b.shape, name
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-6 * scale, name
 
 
 TF32_CASES = [
@@ -199,19 +264,26 @@ def test_tf32_round_keeps_nan():
     assert torch.isnan(mlstm.tf32_round(torch.tensor([float("nan")]))).all()
 
 
-@pytest.mark.parametrize("product", ["forward", "sweep"])
+@pytest.mark.parametrize("product", ["forward", "sweep", "recur_sweep",
+                                     "recur_proj"])
 def test_3xtf32_product_keeps_f32_accuracy(product):
-    """The backward kernel's products in 3xTF32 at the RMI step shape cut to
-    P = 256 (h [256, 500] @ W_h [500, 2000]; dgates [256, 2000] @ W_h^T):
-    within 1e-6 of the float64 product's largest magnitude, where a single
-    TF32 pass is off by more than 1e-4 of it.  This is why the kernel holds
-    BWD_TOL = 1e-4 against the f32 plain version."""
+    """The kernels' products in 3xTF32 with P cut to 256: B1/B2's at the RMI
+    step shape (h [256, 500] @ W_h [500, 2000]; dgates [256, 2000] @
+    W_h^T) and B6's at the RecurAttn shape padded to Hp = 256 (dgates
+    [256, 1024] @ Wm^T [1024, 512]; h [256, 256] @ Wp, K = 256): within
+    1e-6 of the float64 product's largest magnitude, where a single TF32
+    pass is off by more than 1e-4 of it.  This is why the kernels hold
+    BWD_TOL = 1e-4 against the f32 plain versions."""
     rng = np.random.RandomState(5)
     w_h = rng.randn(500, 2000) * 0.05
     if product == "forward":
         a, b = rng.uniform(-1, 1, (256, 500)), w_h
-    else:
+    elif product == "sweep":
         a, b = rng.randn(256, 2000) * 0.1, w_h.T
+    elif product == "recur_sweep":
+        a, b = rng.randn(256, 1024) * 0.1, rng.randn(1024, 512) * 0.25 / 16
+    else:
+        a, b = rng.uniform(-1, 1, (256, 256)), rng.randn(256, 256) / 16
     a32, b32 = (torch.from_numpy(x.astype(np.float32)) for x in (a, b))
     want = a32.double() @ b32.double()
     scale = float(want.abs().max())
@@ -237,6 +309,7 @@ def cuda_device():
     (1, 576, 1024, 8, True),       # BG text fusion
     (2, 37, 100, 7, False),        # ragged tile, H not a multiple of 32
     (3, 5, 8, 6, True),            # smaller than one tile
+    (2, 37, 250, 7, False),        # H not a multiple of 4 (model_scale 0.5)
 ])
 def test_kernel_matches_plain_on_cuda(cuda_device, n, p, hidden, t, front):
     pixel, step, w_h = _inputs(n, p, hidden, t, seed=p)
@@ -261,6 +334,7 @@ BWD_SHAPES = [
     (1, 576, 1024, 8, [5], True),           # BG text fusion
     (3, 37, 100, 7, [7, 0, 3], False),      # ragged tile, an all-masked row
     (3, 5, 8, 6, [3, 6, 0], True),          # smaller than one tile
+    (2, 37, 250, 7, [7, 3], False),         # H not a multiple of 4
 ]
 
 

@@ -156,6 +156,7 @@ SHAPES = [
     (1, 9216, 500, 15, [7]),          # RMI fusion with word attention
     (2, 37, 100, 7, [7, 0]),          # ragged tile, a row with no valid step
     (3, 5, 8, 6, [2, 6, 1]),          # smaller than one tile
+    (2, 37, 250, 7, [7, 3]),          # H not a multiple of 4
 ]
 
 

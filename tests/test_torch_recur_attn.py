@@ -4,12 +4,16 @@ against the JAX ``recur_attn_scan`` (and ``jax.vjp`` of it) and against the
 Pallas kernels B5/B6 in interpret mode, for end-padded, front-padded and
 mid-sequence-padded masks (RecurAttn masks by ``words != 0`` and skips a pad
 wherever it falls), pixel counts that are not a multiple of the tile and a
-row with no valid step.  Tolerance 1e-5 absolute on h and on the six
-gradients (f32, T <= 6 steps; measured max-abs 8.9e-8 on h, 1.9e-6 on
-the gradients).  The CUDA kernels B5 and B6 run only on the
-card (``cuda`` marker): B5 is held against ``recur_attn_plain`` to 1e-4, B6
-against ``recur_attn_bwd_plain`` to 1e-4 of each gradient's largest
-magnitude, and two B6 launches must agree bit for bit.
+row with no valid step, and T = 20 (past the 16 steps the kernels took
+before).  Tolerance 1e-5 absolute on h and on the six gradients (f32;
+measured max-abs 8.9e-8 on h, 1.9e-6 on the gradients at T <= 6).  B6
+pads H to Hp inside (zero rows and columns, Wm's gate blocks padded one by
+one): through the plain versions the padded problem at H = 250 gives h
+within 2e-7 and every gradient within 1e-6 of its largest magnitude.  The
+CUDA kernels B5 and B6 run only on the card (``cuda`` marker): B5 is held
+against ``recur_attn_plain`` to 1e-4, B6 against ``recur_attn_bwd_plain``
+to 1e-4 of each gradient's largest magnitude, and two B6 launches must
+agree bit for bit.
 
 jax is imported inside the parity tests only, so that the card's test run
 (which has no jax, see README) can import this file."""
@@ -18,6 +22,7 @@ import pytest
 import torch
 
 from sketchyscenecolorization_torch.ops import recur_attn
+from sketchyscenecolorization_torch.ops.mlstm import SMEM_BYTES, pad_gates
 
 ATOL = 1e-5
 NAMES = ("d_h0", "d_lang", "d_wp", "d_bp", "d_wm", "d_bm")
@@ -39,6 +44,8 @@ CASES = {
     "mid_pad": (1, 24, 8, 6, 6, np.array([[3, 0, 5, 2, 0, 0]]) != 0),
     "ragged_p": (2, 23, 8, 8, 4, np.array([[1, 1, 1, 1], [1, 0, 0, 0]]) != 0),
     "all_masked_row": (2, 17, 8, 6, 3, np.array([[0, 0, 0], [1, 1, 1]]) != 0),
+    "t20": (2, 9, 8, 8, 20, np.array([[1] * 12 + [0] * 8,
+                                      [0, 1, 1, 0, 1] + [0] * 15]) != 0),
 }
 
 
@@ -129,18 +136,86 @@ def test_cpu_tensors_take_the_plain_path_and_cuda_entries_refuse_them():
 @pytest.mark.parametrize("hidden,t", [(64, 5), (256, 15), (256, 16),
                                       (512, 15)])
 def test_geometry_fits_the_card(hidden, t):
-    from sketchyscenecolorization_torch.ops.mlstm import SMEM_BYTES
-    tile, kc, threads, fwd, sweep = recur_attn.recur_geometry(hidden, t)
+    tile, kc, threads, smem = recur_attn.recur_geometry(hidden, t)
     assert tile % 8 == 0 and kc % 4 == 0 and threads % 32 == 0
     assert threads == hidden // 2 * tile // 8 <= 256
-    assert max(fwd, sweep) <= SMEM_BYTES
-    assert (2 * hidden) % kc == 0 and hidden % (2 * kc) == 0
+    assert smem <= SMEM_BYTES
+    assert (2 * hidden) % kc == 0 and hidden % (4 * kc) == 0
+    hp, split_wm, split_wp, rows, chunks, bwd = recur_attn.recur_bwd_geometry(
+        9216, hidden, t)
+    assert hp % 128 == 0 and hidden <= hp < hidden + 128
+    assert rows == 32 and bwd <= SMEM_BYTES
+    assert 1 <= split_wm <= 16 and 1 <= split_wp <= 32
+    assert 1 <= chunks <= recur_attn.COL_CHUNKS
 
 
 @pytest.mark.parametrize("hidden,t", [(96, 5), (1024, 5), (256, 17)])
 def test_geometry_refuses_what_the_kernels_do_not_take(hidden, t):
-    with pytest.raises(ValueError):
-        recur_attn.recur_geometry(hidden, t)
+    """B5 refuses H that is not a multiple of 64 up to 512, but takes T =
+    17 (any T whose shared memory fits, since C1); B6 takes all three."""
+    hp = recur_attn.recur_bwd_geometry(74, hidden, t)[0]
+    assert hp == -(-hidden // 128) * 128
+    if hidden % 64 or hidden > 512:
+        with pytest.raises(ValueError, match="multiple of 64"):
+            recur_attn.recur_geometry(hidden, t)
+    else:
+        assert recur_attn.recur_geometry(hidden, t)[3] <= SMEM_BYTES
+
+
+@pytest.mark.parametrize("kernel,hidden,t_max", [("fwd", 256, 63),
+                                                 ("fwd", 512, 32),
+                                                 ("bwd", 256, 198)])
+def test_geometry_states_the_t_limit(kernel, hidden, t_max):
+    """The longest sequence each kernel takes, set by lang[n] in shared
+    memory (B6 at its fewest, 8, attention rows a block)."""
+    if kernel == "fwd":
+        recur_attn.recur_geometry(hidden, t_max)
+        with pytest.raises(ValueError, match=f"1..{t_max} "):
+            recur_attn.recur_geometry(hidden, t_max + 1)
+    else:
+        assert recur_attn.recur_bwd_geometry(9216, hidden, t_max)[3] == 8
+        with pytest.raises(ValueError, match=f"1..{t_max} "):
+            recur_attn.recur_bwd_geometry(9216, hidden, t_max + 1)
+
+
+def test_zero_padding_to_hp_is_exact():
+    """B6's padding through the plain versions at H = w = 250: h0, lang, Wp
+    and bp zero-padded to Hp = 256, Wm's x rows and h rows each padded to
+    Hp and its gate blocks one by one (``pad_gates``), bm likewise."""
+    hidden, hp, t = 250, 256, 5
+    h0, lang, wp, bp, wm, bm = (torch.from_numpy(a) for a in _inputs(
+        2, 9, hidden, hidden, t, seed=7))
+    wp, wm = wp / 4, wm / 4                 # glorot-like scale at H = 250
+    valid = torch.from_numpy(np.array([[1, 1, 0, 1, 0], [0, 0, 1, 1, 1]]))
+    g = torch.from_numpy(np.random.RandomState(8).randn(2, 9, hidden)
+                         .astype(np.float32))
+    pad = hp - hidden
+
+    def cols(x):
+        return torch.nn.functional.pad(x, (0, pad))
+    wm_p = torch.cat([torch.nn.functional.pad(pad_gates(part, hidden, hp),
+                                              (0, 0, 0, pad))
+                      for part in (wm[:hidden], wm[hidden:])])
+    padded = (cols(h0), cols(lang),
+              torch.nn.functional.pad(wp, (0, pad, 0, pad)), cols(bp), wm_p,
+              pad_gates(bm, hidden, hp))
+    got = recur_attn.recur_attn_plain(*padded, valid)
+    assert not got[..., hidden:].any()      # padded units stay 0
+    torch.testing.assert_close(
+        got[..., :hidden],
+        recur_attn.recur_attn_plain(h0, lang, wp, bp, wm, bm, valid),
+        rtol=0, atol=2e-7)
+    grads = recur_attn.recur_attn_bwd_plain(*padded, valid, cols(g))
+    keep = torch.cat([torch.arange(hidden), hp + torch.arange(hidden)])
+    grads = (grads[0][..., :hidden], grads[1][..., :hidden],
+             grads[2][:hidden, :hidden], grads[3][:hidden],
+             grads[4][keep].reshape(2 * hidden, 4, hp)[..., :hidden]
+             .reshape(2 * hidden, 4 * hidden),
+             grads[5].reshape(4, hp)[:, :hidden].reshape(-1))
+    want = recur_attn.recur_attn_bwd_plain(h0, lang, wp, bp, wm, bm, valid, g)
+    for name, a, b in zip(NAMES, grads, want):
+        assert a.shape == b.shape, name
+        assert float((a - b).abs().max()) <= 1e-6 * float(b.abs().max()), name
 
 
 @pytest.fixture
@@ -155,6 +230,7 @@ SHAPES = [
     (1, 9216, 256, 15, [[1] * 7 + [0] * 8]),            # RecurAttn fusion
     (2, 37, 256, 6, [[2, 0, 4, 1, 0, 0], [0] * 6]),      # ragged, mid pad
     (2, 40, 64, 5, [[0, 0, 1, 1, 1], [1, 1, 1, 1, 1]]),  # H=64, front pad
+    (2, 37, 256, 20, [[1] * 12 + [0] * 8, [0, 1, 1, 0, 1] + [0] * 15]),  # T=20
 ]
 
 
