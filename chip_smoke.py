@@ -9,7 +9,8 @@ and prints no result):
      registers and spills: the masked pixel-LSTM ``csrc/mlstm_fwd.cu`` (B1
      and B3, its word-attention variant) and ``csrc/mlstm_bwd.cu`` (B2,
      B4), and the RecurAttn recurrence ``csrc/recur_attn_fwd.cu`` (B5) and
-     ``csrc/recur_attn_bwd.cu`` (B6);
+     ``csrc/recur_attn_bwd.cu`` (B6), which share the tensor-core kernels of
+     ``csrc/lstm_tc.cuh`` and ``csrc/recur_tc.cuh``;
   2. turn TF32 off for cuDNN convolutions and cuBLAS matmuls;
   3. hold B1 against ``mlstm_plain`` on the card at the RMI, FG and BG
      shapes, at H = 250 (not a multiple of 4) and at the FG shape with a
@@ -20,8 +21,8 @@ and prints no result):
      check that two launches agree bit for bit, and time both against its
      f32 and 3xTF32 tensor-core bounds; profile one B2 call at the RMI
      shape by launch kind (layout, staging forward, sweep, d_W_h, d_step);
-     count the HMMA (tensor-core) instructions of B1's, B2/B4's and B6's
-     kernels in the built library with ``cuobjdump -sass`` and check that
+     count the HMMA (tensor-core) instructions of every kernel's products
+     (B1-B6) in the built library with ``cuobjdump -sass`` and check that
      they have no float atomics;
   5. run the same FG instruction sequence through a CUDA session and a CPU
      session (plain PyTorch path) on a small synthetic scene, with the same
@@ -42,12 +43,13 @@ and prints no result):
      written and resumed; step wall times, B2's share of a step
      (``torch.profiler``) and peak device memory;
   9. hold B3/B4 against ``mlstm_attn_plain``/``mlstm_attn_bwd_plain`` at
-     the RMI shape, a ragged one and H = 250 (acc within 1e-4; each
-     gradient, d_attn included, within 1e-4 of its largest magnitude; B4
-     bitwise repeatable), and B5/B6 against ``recur_attn_plain``/
-     ``recur_attn_bwd_plain`` at the RecurAttn shape, a ragged mask with a
-     0 inside a sequence and T = 20, the same way; time each against its
-     plain version; profile one B6 call at the RecurAttn shape by launch
+     the RMI shape, a ragged one with a row without a kept step and H = 250
+     (acc within 1e-4; each gradient, d_attn included, within 1e-4 of its
+     largest magnitude; B4 bitwise repeatable), and B5/B6 against
+     ``recur_attn_plain``/``recur_attn_bwd_plain`` at the RecurAttn shape, a
+     ragged mask with a 0 inside a sequence, T = 20 and H = 250, the same
+     way; time each against its plain version; profile one B3 call at the
+     RMI shape and one B5 and one B6 call at the RecurAttn shape by launch
      kind (this phase runs right after 4);
  10. for each of the word-attention (``use_attn``) and RecurAttn fusions:
      the small-scene session sequence and three small-config train steps on
@@ -57,7 +59,7 @@ and prints no result):
      B3+B4 or B5+B6, with step walls, peak device memory and the last step
      under ``torch.profiler``;
  11. print the kernels line (six kernels: launches per path, times, the
-     f32 and 3xTF32 bounds, B1's, B2's and B6's device ms by launch kind),
+     f32 and 3xTF32 bounds, device ms by launch kind, HMMA counts),
      the card's name and power limit, and last ``{"ok": true, "device":
      {...}}``.
 
@@ -111,6 +113,8 @@ RECUR_SHAPES = [
      [[1, 1, 0, 1, 1, 1, 1] + [0] * 8, [0, 0, 1, 1, 1] + [0] * 10]),
     ("recur_t20", 2, 1001, 256, 20, [[1] * 12 + [0] * 8,
                                      [0, 1, 1, 0, 1] + [0] * 15]),
+    ("recur_h250", 2, 1001, 250, 15, [[1] * 7 + [0] * 8,
+                                      [1] * 3 + [0] * 12]),
 ]
 VARIANTS = {"attn": {"use_attn": True}, "recur": {"fusion_type": "RecurAttn"}}
 
@@ -252,13 +256,18 @@ FUSION_KERNELS = {"": ("mlstm_fwd", "mlstm_bwd"),
                   "attn": ("mlstm_attn_fwd", "mlstm_attn_bwd"),
                   "recur": ("recur_attn_fwd", "recur_attn_bwd")}
 # device kernels (profiler names) of each variant's forward and backward
-# (the layout kernels of csrc/lstm_tc.cuh, shared by B1, B2/B4 and B6 and
-# 0.01 ms a call, are in none)
-B1_NAMES = ("mlstm_stage_kernel<true>",)
-B2_NAMES = ("mlstm_stage_kernel<false>", "mlstm_bwd_", "lstm_rows_product")
+# (the layout and pad kernels of csrc/lstm_tc.cuh and csrc/recur_tc.cuh,
+# shared by forward and backward and 0.01-0.02 ms a call, are in none);
+# mlstm_stage_kernel's modes: 0 B2/B4's staging, 1 B1, 2 B3
+B1_NAMES = ("mlstm_stage_kernel<1>",)
+B2_NAMES = ("mlstm_stage_kernel<0>", "mlstm_bwd_", "lstm_rows_product")
+RECUR_FWD = ("recur_proj_kernel<true>", "recur_softmax_kernel<true>",
+             "recur_gates_kernel<true>")
 PROFILE_NAMES = {
-    "attn": (("mlstm_attn_fwd_kernel",), B2_NAMES),
-    "recur": (("recur_attn_fwd_kernel",), ("recur_bwd_", "lstm_rows_product"))}
+    "attn": (("mlstm_stage_kernel<2>",), B2_NAMES),
+    "recur": (RECUR_FWD, ("recur_bwd_", "recur_proj_kernel<false>",
+                          "recur_softmax_kernel<false>",
+                          "recur_gates_kernel<false>", "lstm_rows_product"))}
 
 
 def _kept(rows):
@@ -417,18 +426,22 @@ def check_bwd_kernel(mlstm):
 # launch kinds of B1 (csrc/mlstm_fwd.cu) and B2/B4 (csrc/mlstm_bwd.cu) by
 # kernel-name substring (the layout kernels of csrc/lstm_tc.cuh serve both)
 LAYOUT = ("lstm_slots", "lstm_layout")
-FWD_KINDS = {"layout": LAYOUT, "stage": ("mlstm_stage_kernel<true>",)}
+FWD_KINDS = {"layout": LAYOUT, "stage": B1_NAMES}
+ATTN_FWD_KINDS = {"layout": LAYOUT, "stage": ("mlstm_stage_kernel<2>",)}
 BWD_KINDS = {"layout": LAYOUT,
-             "staging forward": ("mlstm_stage_kernel<false>",),
+             "staging forward": ("mlstm_stage_kernel<0>",),
              "sweep": ("mlstm_bwd_sweep",),
              "d_W_h": ("lstm_rows_product", "lstm_weight_sum"),
              "d_step": ("mlstm_bwd_step_sums",),
              "d_attn": ("mlstm_bwd_attn", "lstm_ordered_sum")}
-# launch kinds of B6 (csrc/recur_attn_bwd.cu)
-RECUR_BWD_KINDS = {"layout": LAYOUT + ("recur_bwd_pad", "Memset"),
-                   "F1 h_proj": ("recur_bwd_proj",),
-                   "F2 softmax": ("recur_bwd_softmax",),
-                   "F3 gates+cell": ("recur_bwd_gates",),
+# launch kinds of B5 (csrc/recur_attn_fwd.cu) and B6 (csrc/recur_attn_bwd.cu)
+RECUR_FWD_KINDS = {"layout": LAYOUT + ("recur_pad", "Memcpy"),
+                   "F1 h_proj": RECUR_FWD[:1], "F2 softmax": RECUR_FWD[1:2],
+                   "F3 gates+cell": RECUR_FWD[2:]}
+RECUR_BWD_KINDS = {"layout": LAYOUT + ("recur_pad", "Memset"),
+                   "F1 h_proj": ("recur_proj_kernel<false>",),
+                   "F2 softmax": ("recur_softmax_kernel<false>",),
+                   "F3 gates+cell": ("recur_gates_kernel<false>",),
                    "S3 dh+cell grad": ("recur_bwd_sweep",),
                    "S1 dx": ("recur_bwd_dx",),
                    "S2 attn bwd": ("recur_bwd_attn",),
@@ -436,10 +449,12 @@ RECUR_BWD_KINDS = {"layout": LAYOUT + ("recur_bwd_pad", "Memset"),
                    "sums": ("lstm_ordered_sum", "recur_bwd_col_parts")}
 # kernels that run products on the tensor cores
 SASS_PRODUCTS = {
-    "B1": ("mlstm_stage_kernel<true>",),
-    "B2/B4": ("mlstm_stage_kernel<false>", "mlstm_bwd_sweep_kernel<false>",
+    "B1": B1_NAMES,
+    "B2/B4": ("mlstm_stage_kernel<0>", "mlstm_bwd_sweep_kernel<false>",
               "mlstm_bwd_sweep_kernel<true>", "lstm_rows_product_kernel"),
-    "B6": ("recur_bwd_proj_kernel", "recur_bwd_gates_kernel",
+    "B3": ("mlstm_stage_kernel<2>",),
+    "B5": ("recur_proj_kernel<true>", "recur_gates_kernel<true>"),
+    "B6": ("recur_proj_kernel<false>", "recur_gates_kernel<false>",
            "recur_bwd_sweep_kernel", "recur_bwd_dx_kernel",
            "lstm_rows_product_kernel")}
 
@@ -517,26 +532,31 @@ def profile_bwd_call(mlstm):
     return kinds
 
 
-def profile_recur_bwd_call():
-    """One B6 call at the RecurAttn shape (RECUR_SHAPES[0]) by launch kind
-    (RECUR_BWD_KINDS), the gate products of the staging forward and the
-    sweep's dh products launch by launch."""
+def profile_variant_call(label, kinds, per_launch):
+    """One call of B3 (``label`` "B3", at the RMI shape ATTN_SHAPES[0]), B5
+    or B6 ("B5", "B6", at the RecurAttn shape RECUR_SHAPES[0]) by launch
+    kind (``kinds``), the ``per_launch`` kinds launch by launch: B3's stage
+    launches (rank 0 with the cell alone, the ranks with the product, the
+    empty ranks past the kept steps), B5's and B6's gate products, B6's
+    sweep products."""
     import torch
-    from sketchyscenecolorization_torch.ops import recur_attn
-    name, n, p, hid, t, rows = RECUR_SHAPES[0]
-    args, dout = variant_inputs("recur", n, p, hid, t, rows)
-    kinds = profile_call(f"B6 at {name}",
-                         lambda: recur_attn.recur_attn_bwd_cuda(*args, dout),
-                         RECUR_BWD_KINDS,
-                         ("F3 gates+cell", "S3 dh+cell grad"))
+    from sketchyscenecolorization_torch.ops import mlstm, recur_attn
+    kind = "attn" if label == "B3" else "recur"
+    name, n, p, hid, t, rows = (ATTN_SHAPES if kind == "attn"
+                                else RECUR_SHAPES)[0]
+    args, dout = variant_inputs(kind, n, p, hid, t, rows)
+    call = {"B3": lambda: mlstm.mlstm_attn_cuda(*args),
+            "B5": lambda: recur_attn.recur_attn_cuda(*args),
+            "B6": lambda: recur_attn.recur_attn_bwd_cuda(*args, dout)}[label]
+    sums = profile_call(f"{label} at {name}", call, kinds, per_launch)
     del args, dout
     torch.cuda.empty_cache()
-    return kinds
+    return sums
 
 
 def sass_counts(library: str):
-    """{kernel: (HMMA, float atomics)} of the tensor-core kernels of B1,
-    B2/B4 and B6 (SASS_PRODUCTS) in the built library, from ``cuobjdump
+    """{kernel: (HMMA, float atomics)} of the tensor-core kernels of B1-B6
+    (SASS_PRODUCTS) in the built library, from ``cuobjdump
     -sass``: the fewest HMMA and the most float atomics over the copies of
     a kernel (a kernel of csrc/lstm_tc.cuh has one in each source that
     launches it); raises unless each runs HMMA and none has a float
@@ -549,10 +569,12 @@ def sass_counts(library: str):
     counts, cur = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"\d((?:m?lstm|recur_bwd)_[a-z_]+_kernel)"
-                          r"(?:ILb([01])E)?", line)
-            name = m and m.group(1) + {"0": "<false>", "1": "<true>"}.get(
-                m.group(2), "")
+            m = re.search(r"\d((?:m?lstm|recur)_[a-z_]+_kernel)"
+                          r"(?:IL([bi])(\d+)E)?", line)
+            name = m and m.group(1) + (
+                "" if not m.group(2) else f"<{m.group(3)}>"
+                if m.group(2) == "i" else
+                "<true>" if m.group(3) == "1" else "<false>")
             cur = [0, 0] if name in names else None
             if cur:
                 counts.setdefault(name, []).append(cur)
@@ -566,7 +588,7 @@ def sass_counts(library: str):
     if missing or any(a for _, a in counts.values()):
         raise AssertionError(f"no HMMA in {missing} or float atomics: "
                              f"{counts}")
-    log("SASS of B1, B2/B4 and B6 (cuobjdump -sass): HMMA per kernel "
+    log("SASS of B1-B6 (cuobjdump -sass): HMMA per kernel "
         + ", ".join(f"{k} {h}" for k, (h, _) in sorted(counts.items()))
         + "; no float atomics")
     return counts
@@ -1341,16 +1363,16 @@ def kernel_entry(name, source, replaces, launches_by_path, err, ms,
             "shape": shape_name}
 
 
-def kernels_line(by_kernel, fwd, fwd_kinds, bwd, kinds, sass, attn, recur,
-                 recur_kinds):
+def kernels_line(by_kernel, fwd, bwd, sass, attn, recur, profiles):
     """The six entries of the kernels line from the phases' results: the
-    launches of each path, B1's and B2's checks and profiles, the SASS
-    counts, B3-B6's checks and B6's profile, at each kernel's main shape."""
+    launches of each path, B1's and B2's checks, the SASS counts, B3-B6's
+    checks and every kernel's profile (``profiles``: {"B1": its launch
+    kinds, ...}), at each kernel's main shape."""
     rmi, (_, n, p, hid, t, rows) = SHAPES[0], RECUR_SHAPES[0]
     a_shape = ATTN_SHAPES[0]
 
-    def by_kind(sums):
-        return {k: v[0] for k, v in sums.items() if v[1]}
+    def by_kind(label):
+        return {k: v[0] for k, v in profiles[label].items() if v[1]}
 
     def hmma(label):
         return sum(sass[name][0] for name in SASS_PRODUCTS[label])
@@ -1359,31 +1381,35 @@ def kernels_line(by_kernel, fwd, fwd_kinds, bwd, kinds, sass, attn, recur,
                      max(e for e, _, _ in fwd.values()), fwd["rmi"][1],
                      fwd["rmi"][2], fwd_bound(*rmi[1:6], tensor_cores=True),
                      rmi[0], bound_f32_ms=fwd_bound(*rmi[1:6])[0],
-                     ms_by_kind=by_kind(fwd_kinds), hmma=hmma("B1")),
+                     ms_by_kind=by_kind("B1"), hmma=hmma("B1")),
         kernel_entry("mlstm_bwd", "mlstm_bwd.cu", 778, by_kernel["mlstm_bwd"],
                      max(e for e, _, _, _ in bwd.values()), bwd["rmi"][2],
                      bwd["rmi"][3], bwd_bound(*rmi[1:6], tensor_cores=True),
                      rmi[0], bound_f32_ms=bwd_bound(*rmi[1:6])[0],
-                     ms_by_kind=by_kind(kinds), hmma=hmma("B2/B4")),
+                     ms_by_kind=by_kind("B2"), hmma=hmma("B2/B4")),
         kernel_entry("mlstm_attn_fwd", "mlstm_fwd.cu", 143,
                      by_kernel["mlstm_attn_fwd"],
                      max(r[0] for r in attn.values()), attn[a_shape[0]][1],
-                     attn[a_shape[0]][2], attn_fwd_bound(*a_shape[1:]),
-                     a_shape[0], bound_tc_ms=attn_fwd_bound(
-                         *a_shape[1:], tensor_cores=True)[0]),
+                     attn[a_shape[0]][2],
+                     attn_fwd_bound(*a_shape[1:], tensor_cores=True),
+                     a_shape[0], bound_f32_ms=attn_fwd_bound(*a_shape[1:])[0],
+                     ms_by_kind=by_kind("B3"), hmma=hmma("B3")),
         kernel_entry("mlstm_attn_bwd", "mlstm_bwd.cu", 279,
                      by_kernel["mlstm_attn_bwd"],
                      max(r[3] for r in attn.values()), attn[a_shape[0]][5],
                      attn[a_shape[0]][6],
                      attn_bwd_bound(*a_shape[1:], tensor_cores=True),
                      a_shape[0],
-                     bound_f32_ms=attn_bwd_bound(*a_shape[1:])[0]),
+                     bound_f32_ms=attn_bwd_bound(*a_shape[1:])[0],
+                     hmma=hmma("B2/B4")),
         kernel_entry("recur_attn_fwd", "recur_attn_fwd.cu", 430,
                      by_kernel["recur_attn_fwd"],
                      max(r[0] for r in recur.values()), recur["recur"][1],
-                     recur["recur"][2], recur_fwd_bound(n, p, hid, t, rows),
-                     "recur", bound_tc_ms=recur_fwd_bound(
-                         n, p, hid, t, rows, tensor_cores=True)[0]),
+                     recur["recur"][2],
+                     recur_fwd_bound(n, p, hid, t, rows, tensor_cores=True),
+                     "recur",
+                     bound_f32_ms=recur_fwd_bound(n, p, hid, t, rows)[0],
+                     ms_by_kind=by_kind("B5"), hmma=hmma("B5")),
         kernel_entry("recur_attn_bwd", "recur_attn_bwd.cu", 554,
                      by_kernel["recur_attn_bwd"],
                      max(r[3] for r in recur.values()), recur["recur"][5],
@@ -1391,7 +1417,7 @@ def kernels_line(by_kernel, fwd, fwd_kinds, bwd, kinds, sass, attn, recur,
                      recur_bwd_bound(n, p, hid, t, rows, tensor_cores=True),
                      "recur",
                      bound_f32_ms=recur_bwd_bound(n, p, hid, t, rows)[0],
-                     ms_by_kind=by_kind(recur_kinds), hmma=hmma("B6"))]
+                     ms_by_kind=by_kind("B6"), hmma=hmma("B6"))]
 
 
 def main() -> int:
@@ -1425,13 +1451,17 @@ def main() -> int:
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     fwd = check_kernel(mlstm)
-    fwd_kinds = profile_fwd_call(mlstm)
+    profiles = {"B1": profile_fwd_call(mlstm)}
     bwd = check_bwd_kernel(mlstm)
-    kinds = profile_bwd_call(mlstm)
+    profiles["B2"] = profile_bwd_call(mlstm)
     sass = sass_counts(mlstm.LIBRARY)
     attn = check_variant_kernels("attn")
     recur = check_variant_kernels("recur")
-    recur_kinds = profile_recur_bwd_call()
+    profiles["B3"] = profile_variant_call("B3", ATTN_FWD_KINDS, ("stage",))
+    profiles["B5"] = profile_variant_call("B5", RECUR_FWD_KINDS,
+                                          ("F3 gates+cell",))
+    profiles["B6"] = profile_variant_call(
+        "B6", RECUR_BWD_KINDS, ("F3 gates+cell", "S3 dh+cell grad"))
     log(f"library call: none for B1-B6 ({NO_LIBRARY}; B5/B6 also attend "
         "over the word-LSTM outputs inside the recurrence)")
     check_against_cpu(build_session)
@@ -1453,8 +1483,7 @@ def main() -> int:
     if idle:
         raise AssertionError(f"kernels never launched on a path: {idle}")
     log(json.dumps({"kernels": kernels_line(
-        by_kernel, fwd, fwd_kinds, bwd, kinds, sass, attn, recur,
-        recur_kinds)}))
+        by_kernel, fwd, bwd, sass, attn, recur, profiles)}))
     log(smi.splitlines()[0])
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

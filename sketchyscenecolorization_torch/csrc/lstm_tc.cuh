@@ -1,6 +1,6 @@
 // Tensor-core machinery of the per-step LSTM kernels for Hopper (sm_90a),
-// shared by B1 (csrc/mlstm_fwd.cu), B2/B4 (csrc/mlstm_bwd.cu) and B6
-// (csrc/recur_attn_bwd.cu).
+// shared by B1 and B3 (csrc/mlstm_fwd.cu), B2/B4 (csrc/mlstm_bwd.cu) and
+// B5/B6 (csrc/recur_tc.cuh).
 //
 // The recurrence is carried from one launch to the next: every launch is one
 // grid-wide product over all N*P pixel rows for one slot rank k (slot k of
@@ -288,34 +288,45 @@ __global__ void lstm_layout_kernel(const float* __restrict__ wh,
   wp[i] = (k < H && u < H) ? wh[(size_t)k * 4 * H + g * H + u] : 0.0f;
 }
 
+// Modes of mlstm_stage_kernel.
+constexpr int kModeStage = 0;   // B2/B4's staging forward
+constexpr int kModeFinal = 1;   // B1: the final h
+constexpr int kModeAttn = 2;    // B3: the attention-weighted sum of h
+
 // The masked recurrence at slot rank k over a 128-row x 128-column tile (32
 // units, 4 gates): gates = h_{k-1} @ W_h + pixel + step (t the step of the
 // row's slot k; no product at k = 0, where h = 0), then the cell.
-//   kFinal false, B2/B4's staging forward: the pre-activation gates go to
+//   kModeStage, B2/B4's staging forward: the pre-activation gates go to
 //     slot k of sg [T, N*P, 4Hp], c and h to slot k of cs, hs [T, N*P, Hp].
-//   kFinal true, B1: h and c ping-pong between slots k % 2 of hs, cs [2, N*P,
+//   kModeFinal, B1: h and c ping-pong between slots k % 2 of hs, cs [2, N*P,
 //     Hp], no gates are kept, and at a row's last kept slot its h goes to
 //     out [N*P, H]; a row without a kept step gets zeros there at k = 0.
-template <bool kFinal>
+//   kModeAttn, B3: as B1, but out [N*P, H] is acc = the sum over the row's
+//     kept slots of attn[n, t] * h: stored at k = 0, added to at every later
+//     slot (by the one thread that owns the element in every launch, so in
+//     slot order); a row without a kept step gets zeros at k = 0.
+template <int kMode>
 __global__ void __launch_bounds__(kThreads, 2)
 mlstm_stage_kernel(const float* __restrict__ pixel,   // [N*P, 4H]
                    const float* __restrict__ step,    // [N, T, 4H]
                    const float* __restrict__ wp,      // [Hp, 4Hp]
                    const int* __restrict__ slot_t,    // [N, T] (+2)
+                   const float* __restrict__ attn,    // [N, T] (kModeAttn)
                    float* __restrict__ hs,
                    float* __restrict__ cs,
-                   float* __restrict__ sg,            // (!kFinal)
-                   float* __restrict__ out,           // [N*P, H] (kFinal)
+                   float* __restrict__ sg,            // (kModeStage)
+                   float* __restrict__ out,           // [N*P, H]
                    int N, int P, int H, int Hp, int T, int k) {
   using G = FwdTile;
+  constexpr bool kStaged = kMode == kModeStage;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   int* row_t = reinterpret_cast<int*>(smem + G::FLOATS);   // [ROWS]
   int* row_last = row_t + G::ROWS;                         // [ROWS]
   const int M = N * P, H4 = 4 * H, H4p = 4 * Hp;
   const int m0 = blockIdx.y * G::ROWS, c0 = blockIdx.x * G::COLS;
-  const size_t cur = kFinal ? (k & 1) : k;          // slot of this step's
-  const size_t prev = kFinal ? ((k + 1) & 1) : k - 1;   // c, h; the last's
+  const size_t cur = kStaged ? k : (k & 1);          // slot of this step's
+  const size_t prev = kStaged ? k - 1 : ((k + 1) & 1);  // c, h; the last's
   int live = 0;
   if (threadIdx.x < G::ROWS) {
     const int m = m0 + threadIdx.x;
@@ -324,7 +335,7 @@ mlstm_stage_kernel(const float* __restrict__ pixel,   // [N*P, 4H]
       const int* srow = slot_t + (m / P) * T;
       t = srow[k];
       last = k + 1 == T || srow[k + 1] < 0;
-      if (kFinal && k == 0 && t < 0) t = -2;   // no kept step: h = 0
+      if (!kStaged && k == 0 && t < 0) t = -2;   // no kept step: out = 0
     }
     row_t[threadIdx.x] = t;
     row_last[threadIdx.x] = last;
@@ -361,7 +372,7 @@ mlstm_stage_kernel(const float* __restrict__ pixel,   // [N*P, 4H]
         gate[g] += pixel[(size_t)m * H4 + g * H + u]
                    + step[((size_t)n * T + t) * H4 + g * H + u];
       }
-      if (!kFinal) sg[((size_t)k * M + m) * H4p + c0 + g * kUnits + uu] = gate[g];
+      if (kStaged) sg[((size_t)k * M + m) * H4p + c0 + g * kUnits + uu] = gate[g];
     }
     float c = 0.0f, h = 0.0f;
     if (u < H) {
@@ -369,7 +380,12 @@ mlstm_stage_kernel(const float* __restrict__ pixel,   // [N*P, 4H]
       c = c_prev * sigmoid_f(gate[2] + 1.0f)
           + sigmoid_f(gate[0]) * tanhf(gate[1]);
       h = sigmoid_f(gate[3]) * tanhf(c);
-      if (kFinal && row_last[r]) out[(size_t)m * H + u] = h;
+      if (kMode == kModeFinal && row_last[r]) out[(size_t)m * H + u] = h;
+      if (kMode == kModeAttn) {
+        float* o = out + (size_t)m * H + u;
+        const float v = attn[n * T + t] * h;
+        *o = k == 0 ? v : *o + v;
+      }
     }
     cs[(cur * M + m) * Hp + u] = c;
     hs[(cur * M + m) * Hp + u] = h;

@@ -44,9 +44,9 @@
 // float atomics: two calls give bit-identical gradients.
 //   1. Layout, once per call: the slot table (lstm_slots_kernel) and W_h
 //      permuted and zero-padded to [Hp, 4Hp] (lstm_layout_kernel).
-//   2. Staging forward, k = 0 .. T-1: mlstm_stage_kernel<false>, the kernel
-//      that is B1 itself with kFinal (csrc/mlstm_fwd.cu): gates = h_{k-1} @
-//      W_h (no product at k = 0, where h = 0) in 128x128 tiles, the
+//   2. Staging forward, k = 0 .. T-1: mlstm_stage_kernel<kModeStage>, the
+//      kernel that is B1 and B3 in their modes (csrc/mlstm_fwd.cu): gates =
+//      h_{k-1} @ W_h (no product at k = 0, where h = 0) in 128x128 tiles, the
 //      epilogue adds pixel_term and step_term[n, t] and writes the
 //      pre-activation gates to stage_g slot k and c, h to stage_c/stage_h
 //      slot k ([T, N*P, 4Hp] and [T, N*P, Hp]).
@@ -242,7 +242,7 @@ int bwd(const float* pixel, const float* step, const float* wh,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int H4p = 4 * Hp;
-  int rc = set_smem(mlstm_stage_kernel<false>, FwdTile::BYTES);
+  int rc = set_smem(mlstm_stage_kernel<kModeStage>, FwdTile::BYTES);
   if (rc == 0) rc = set_smem(mlstm_bwd_sweep_kernel<kAttn>, SweepTile::BYTES);
   if (rc == 0) rc = set_smem(lstm_rows_product_kernel, DwhTile::BYTES);
   if (rc != 0) return rc;
@@ -252,11 +252,12 @@ int bwd(const float* pixel, const float* step, const float* wh,
   lstm_layout_kernel<<<(unsigned)((n_wp + 255) / 256), 256, 0, s>>>(wh, wp, H,
                                                                      Hp);
   for (int k = 0; k < T; ++k) {
-    mlstm_stage_kernel<false><<<dim3(H4p / FwdTile::COLS,
-                                     (unsigned)((M + FwdTile::ROWS - 1)
-                                                / FwdTile::ROWS)),
-                                kThreads, FwdTile::BYTES, s>>>(
-        pixel, step, wp, slot_t, hs, cs, sg, nullptr, N, P, H, Hp, T, k);
+    mlstm_stage_kernel<kModeStage><<<dim3(H4p / FwdTile::COLS,
+                                          (unsigned)((M + FwdTile::ROWS - 1)
+                                                     / FwdTile::ROWS)),
+                                     kThreads, FwdTile::BYTES, s>>>(
+        pixel, step, wp, slot_t, nullptr, hs, cs, sg, nullptr, N, P, H, Hp,
+        T, k);
   }
   for (int k = T - 1; k >= 0; --k) {
     mlstm_bwd_sweep_kernel<kAttn><<<dim3(Hp / SweepTile::COLS,

@@ -37,7 +37,8 @@
 //   1. layout: the slot table; Wm permuted to wmp [2Hp, 4Hp]; Wp, lang and
 //      h0 padded (h0 into the h half of slot 0 of stage_xh); the d_lang
 //      partials zeroed;
-//   2. staging forward, k = 0 .. T-1, three launches each:
+//   2. staging forward, k = 0 .. T-1, three launches each (csrc/recur_tc.cuh,
+//      the kernels of B5 without kFinal):
 //      F1 h_proj = h_{k-1} @ Wp + bp (64x64 tiles) -> stage_hp slot k;
 //      F2 one warp per row on the CUDA cores: the T logits against lang[n]
 //         (in shared memory), the softmax over all T, x = attn @ lang ->
@@ -75,184 +76,9 @@
 // ms as the 3xTF32 products it runs (three TF32 products per f32 product at
 // 495 TFLOP/s).  The staged trajectory moves about 3 GB through HBM, 0.9 ms.
 
-#include "lstm_tc.cuh"
+#include "recur_tc.cuh"
 
 namespace {
-
-using ProjTile = Tile<64, 64, false, true, 3>;   // h @ Wp: Wp stored [k][n]
-
-constexpr int kWarps = kThreads / 32;
-
-// dst[r * ld + c] = src[r * cols + c] where r < src_rows and c < cols, else
-// 0, for r < rows and c < width.
-__global__ void recur_bwd_pad_kernel(const float* __restrict__ src,
-                                     int src_rows, int cols,
-                                     float* __restrict__ dst, int rows,
-                                     int width, int ld) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (size_t)rows * width) return;
-  const int r = (int)(i / width), c = (int)(i % width);
-  dst[(size_t)r * ld + c] =
-      (r < src_rows && c < cols) ? src[(size_t)r * cols + c] : 0.0f;
-}
-
-// F1, slot rank k: stage_hp[k] = h_{k-1} @ Wp + bp for the rows that have a
-// slot k, h_{k-1} the h half of stage_xh[k].
-__global__ void __launch_bounds__(kThreads, 3)
-recur_bwd_proj_kernel(const float* __restrict__ stage_xh,   // [T, N*P, 2Hp]
-                      const float* __restrict__ wpp,        // [Hp, Hp]
-                      const float* __restrict__ bp,         // [H]
-                      const int* __restrict__ slot_t,       // [N, T] (+2)
-                      float* __restrict__ stage_hp,         // [T, N*P, Hp]
-                      int N, int P, int H, int Hp, int T, int k) {
-  using G = ProjTile;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  int* row_live = reinterpret_cast<int*>(smem + G::FLOATS);   // [ROWS]
-  const int M = N * P;
-  const int m0 = blockIdx.y * G::ROWS, c0 = blockIdx.x * G::COLS;
-  int live = 0;
-  if (threadIdx.x < G::ROWS) {
-    const int m = m0 + threadIdx.x;
-    live = m < M && slot_t[(m / P) * T + k] >= 0;
-    row_live[threadIdx.x] = live;
-  }
-  if (!__syncthreads_or(live)) return;
-
-  float acc[G::MT][G::NT][4];
-  const float* a_src = stage_xh + ((size_t)k * M + m0) * 2 * Hp + Hp;
-  tile_product<G>(acc, smem, Hp / kBK, [&](float* As, float* Bs, int kt) {
-    stage_inner<G::LDA>(As, a_src + kt * kBK, 2 * Hp, G::ROWS, M - 1 - m0);
-    stage_outer<G::LDB>(Bs, wpp + (size_t)kt * kBK * Hp + c0, Hp, G::COLS,
-                        [](int) { return true; });
-  });
-  store_tile<G>(acc, smem);
-  __syncthreads();
-  for (int i = threadIdx.x; i < G::ROWS * G::COLS; i += kThreads) {
-    const int r = i / G::COLS, v = c0 + i % G::COLS;
-    if (!row_live[r]) continue;
-    stage_hp[((size_t)k * M + m0 + r) * Hp + v] =
-        smem[r * G::LDC + i % G::COLS] + (v < H ? bp[v] : 0.0f);
-  }
-}
-
-// F2, slot rank k, one warp per pixel row of batch row n = blockIdx.y:
-// logits[t] = h_proj . lang[n, t] for all T, attn = their softmax (to
-// stage_attn), x = attn @ lang[n] (to the x half of stage_xh[k]).  Shared
-// memory: lang[n] [T, Hp], then per warp an h_proj row and its T logits.
-__global__ void __launch_bounds__(kThreads)
-recur_bwd_softmax_kernel(const float* __restrict__ stage_hp,  // [T, N*P, Hp]
-                         const float* __restrict__ langp,     // [N, T, Hp]
-                         const int* __restrict__ slot_t,      // [N, T] (+2)
-                         float* __restrict__ stage_attn,      // [T, N*P, T]
-                         float* __restrict__ stage_xh,        // [T, N*P, 2Hp]
-                         int N, int P, int Hp, int T, int k, int rows) {
-  const int n = blockIdx.y;
-  if (slot_t[n * T + k] < 0) return;
-  extern __shared__ float4 smem4[];
-  float* const lang_s = reinterpret_cast<float*>(smem4);     // [T, Hp]
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  float* const hr = lang_s + T * Hp + warp * (Hp + T);       // [Hp]
-  float* const lg = hr + Hp;                                 // [T]
-  const float4* src = reinterpret_cast<const float4*>(langp + (size_t)n * T * Hp);
-  for (int i = threadIdx.x; i < T * Hp / 4; i += kThreads) {
-    reinterpret_cast<float4*>(lang_s)[i] = src[i];
-  }
-  __syncthreads();
-  const int M = N * P, p0 = blockIdx.x * rows;
-  for (int r = warp; r < rows && p0 + r < P; r += kWarps) {
-    const size_t row = (size_t)k * M + (size_t)n * P + p0 + r;
-    for (int c = lane; c < Hp; c += 32) hr[c] = stage_hp[row * Hp + c];
-    __syncwarp();
-    for (int t = 0; t < T; ++t) {
-      float part = 0.0f;
-      for (int c = lane; c < Hp; c += 32) {
-        part = fmaf(hr[c], lang_s[t * Hp + c], part);
-      }
-      part = warp_sum(part);
-      if (lane == 0) lg[t] = part;
-    }
-    __syncwarp();
-    float mx = lg[0];
-    for (int t = 1; t < T; ++t) mx = fmaxf(mx, lg[t]);
-    float sum = 0.0f;
-    for (int t = 0; t < T; ++t) sum += expf(lg[t] - mx);
-    __syncwarp();                         // every lane has read the logits
-    for (int t = lane; t < T; t += 32) {
-      const float a = expf(lg[t] - mx) / sum;
-      lg[t] = a;
-      stage_attn[row * T + t] = a;
-    }
-    __syncwarp();
-    float* xr = stage_xh + row * 2 * Hp;
-    for (int c = lane; c < Hp; c += 32) {
-      float x = 0.0f;
-      for (int t = 0; t < T; ++t) x = fmaf(lg[t], lang_s[t * Hp + c], x);
-      xr[c] = x;
-    }
-    __syncwarp();                         // hr and lg are free again
-  }
-}
-
-// F3, slot rank k, over a 128-row x 128-column tile (32 units, 4 gates):
-// gates = [x, h_{k-1}] @ Wm + bm (stage_xh[k] @ wmp, K = 2Hp), then the cell:
-// the gates go to stage_g[k], c to stage_c[k] and h to the h half of
-// stage_xh[k + 1].
-__global__ void __launch_bounds__(kThreads, 2)
-recur_bwd_gates_kernel(float* __restrict__ stage_xh,        // [T, N*P, 2Hp]
-                       const float* __restrict__ wmp,       // [2Hp, 4Hp]
-                       const float* __restrict__ bm,        // [4H]
-                       const int* __restrict__ slot_t,      // [N, T] (+2)
-                       float* __restrict__ cs,              // [T, N*P, Hp]
-                       float* __restrict__ sg,              // [T, N*P, 4Hp]
-                       int N, int P, int H, int Hp, int T, int k) {
-  using G = FwdTile;
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  int* row_live = reinterpret_cast<int*>(smem + G::FLOATS);   // [ROWS]
-  const int M = N * P, H4p = 4 * Hp;
-  const size_t H2p = 2 * (size_t)Hp;
-  const int m0 = blockIdx.y * G::ROWS, c0 = blockIdx.x * G::COLS;
-  int live = 0;
-  if (threadIdx.x < G::ROWS) {
-    const int m = m0 + threadIdx.x;
-    live = m < M && slot_t[(m / P) * T + k] >= 0;
-    row_live[threadIdx.x] = live;
-  }
-  if (!__syncthreads_or(live)) return;
-
-  float acc[G::MT][G::NT][4];
-  const float* a_src = stage_xh + ((size_t)k * M + m0) * H2p;
-  tile_product<G>(acc, smem, 2 * Hp / kBK, [&](float* As, float* Bs, int kt) {
-    stage_inner<G::LDA>(As, a_src + kt * kBK, H2p, G::ROWS, M - 1 - m0);
-    stage_outer<G::LDB>(Bs, wmp + (size_t)kt * kBK * H4p + c0, H4p, G::COLS,
-                        [](int) { return true; });
-  });
-  store_tile<G>(acc, smem);
-  __syncthreads();
-
-  const int uu = threadIdx.x % kUnits;
-  const int u = blockIdx.x * kUnits + uu;
-  for (int r = threadIdx.x / kUnits; r < G::ROWS; r += kThreads / kUnits) {
-    if (!row_live[r]) continue;
-    const size_t m = m0 + r;
-    float gate[4];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      gate[g] = smem[r * G::LDC + g * kUnits + uu] + (u < H ? bm[g * H + u] : 0.0f);
-      sg[((size_t)k * M + m) * H4p + c0 + g * kUnits + uu] = gate[g];
-    }
-    float c = 0.0f, h = 0.0f;
-    if (u < H) {
-      const float c_prev = k > 0 ? cs[((size_t)(k - 1) * M + m) * Hp + u] : 0.0f;
-      c = c_prev * sigmoid_f(gate[2] + 1.0f)
-          + sigmoid_f(gate[0]) * tanhf(gate[1]);
-      h = sigmoid_f(gate[3]) * tanhf(c);
-    }
-    cs[((size_t)k * M + m) * Hp + u] = c;
-    if (k + 1 < T) stage_xh[((size_t)(k + 1) * M + m) * H2p + Hp + u] = h;
-  }
-}
 
 // S3 at slot rank k over a 64-row x 64-unit tile: dh = [dgates_{k+1},
 // dhp_{k+1}] @ [Wm_h; Wp]^T for the rows that have a slot k+1 (K = 5Hp;
@@ -513,11 +339,11 @@ extern "C" int recur_attn_bwd(
   const int attn_blocks = (P + attn_rows - 1) / attn_rows;
   const int soft_smem = 4 * (T * Hp + kWarps * (Hp + T));
   const int attn_smem = 4 * (T * Hp + 2 * attn_rows * (Hp + T));
-  int rc = set_smem(recur_bwd_proj_kernel, ProjTile::BYTES);
-  if (rc == 0) rc = set_smem(recur_bwd_gates_kernel, FwdTile::BYTES);
+  int rc = set_smem(recur_proj_kernel<false>, ProjTile::BYTES);
+  if (rc == 0) rc = set_smem(recur_gates_kernel<false>, FwdTile::BYTES);
   if (rc == 0) rc = set_smem(recur_bwd_sweep_kernel, SweepTile::BYTES);
   if (rc == 0) rc = set_smem(recur_bwd_dx_kernel, SweepTile::BYTES);
-  if (rc == 0) rc = set_smem(recur_bwd_softmax_kernel, soft_smem);
+  if (rc == 0) rc = set_smem(recur_softmax_kernel<false>, soft_smem);
   if (rc == 0) rc = set_smem(recur_bwd_attn_kernel, attn_smem);
   if (rc == 0) rc = set_smem(lstm_rows_product_kernel, DwhTile::BYTES);
   if (rc != 0) return rc;
@@ -528,11 +354,11 @@ extern "C" int recur_attn_bwd(
   lstm_layout_kernel<<<blocks_of(n_wp, 256), 256, 0, s>>>(wm, wmp, H, Hp);
   lstm_layout_kernel<<<blocks_of(n_wp, 256), 256, 0, s>>>(
       wm + (size_t)H * 4 * H, wmp + n_wp, H, Hp);
-  recur_bwd_pad_kernel<<<blocks_of((size_t)Hp * Hp, 256), 256, 0, s>>>(
+  recur_pad_kernel<<<blocks_of((size_t)Hp * Hp, 256), 256, 0, s>>>(
       wp, H, H, wpp, Hp, Hp, Hp);
-  recur_bwd_pad_kernel<<<blocks_of((size_t)N * T * Hp, 256), 256, 0, s>>>(
+  recur_pad_kernel<<<blocks_of((size_t)N * T * Hp, 256), 256, 0, s>>>(
       lang, N * T, H, langp, N * T, Hp, Hp);
-  recur_bwd_pad_kernel<<<blocks_of((size_t)M * Hp, 256), 256, 0, s>>>(
+  recur_pad_kernel<<<blocks_of((size_t)M * Hp, 256), 256, 0, s>>>(
       h0, Mi, H, stage_xh + Hp, Mi, Hp, 2 * Hp);
   cudaError_t err = cudaMemsetAsync(
       lang_part, 0, sizeof(float) * (size_t)N * attn_blocks * T * Hp, s);
@@ -543,13 +369,14 @@ extern "C" int recur_attn_bwd(
   const dim3 attn_grid(attn_blocks, N);
   const dim3 gates_grid(H4p / FwdTile::COLS, blocks_of(M, FwdTile::ROWS));
   for (int k = 0; k < T; ++k) {
-    recur_bwd_proj_kernel<<<proj_grid, kThreads, ProjTile::BYTES, s>>>(
+    recur_proj_kernel<false><<<proj_grid, kThreads, ProjTile::BYTES, s>>>(
         stage_xh, wpp, bp, slot_t, stage_hp, N, P, H, Hp, T, k);
-    recur_bwd_softmax_kernel<<<attn_grid, kThreads, soft_smem, s>>>(
+    recur_softmax_kernel<false><<<attn_grid, kThreads, soft_smem, s>>>(
         stage_hp, langp, slot_t, stage_attn, stage_xh, N, P, Hp, T, k,
         attn_rows);
-    recur_bwd_gates_kernel<<<gates_grid, kThreads, FwdTile::BYTES, s>>>(
-        stage_xh, wmp, bm, slot_t, stage_c, stage_g, N, P, H, Hp, T, k);
+    recur_gates_kernel<false><<<gates_grid, kThreads, FwdTile::BYTES, s>>>(
+        stage_xh, wmp, bm, slot_t, stage_c, stage_g, nullptr, N, P, H, Hp, T,
+        k);
   }
 
   // 3. reverse sweep

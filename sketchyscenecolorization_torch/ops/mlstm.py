@@ -22,16 +22,15 @@ same functions as Python loops of ``torch.matmul``, also the kernels' test
 oracles); a CUDA tensor goes through ``mlstm_cuda``, ``mlstm_bwd_cuda``,
 ``mlstm_attn_cuda`` and ``mlstm_attn_bwd_cuda``, which launch the
 hand-written kernels B1 and B3 (``csrc/mlstm_fwd.cu``) and B2 and B4
-(``csrc/mlstm_bwd.cu``) or raise.  B1, B2 and B4 run on the tensor cores
-through ``csrc/lstm_tc.cuh`` and take any H (padded inside to Hp, a
-multiple of 128); B3 takes H up to 1024, each gate block zero-padded here
-to a multiple of 4 (``pad_gates``), which is exact: a padded unit's gates
-are 0, so its c and h stay 0.
+(``csrc/mlstm_bwd.cu``) or raise.  All four run on the tensor cores through
+``csrc/lstm_tc.cuh`` (B1 and B3 are two modes of B2's staging kernel) and
+take any H, padded inside to Hp, a multiple of 128, which is exact: a
+padded unit's gates are 0, so its c and h stay 0.
 
 This module also builds and loads the one kernel library of the port:
 ``SOURCES`` (these two files and the RecurAttn kernels B5 and B6 of
-``ops/recur_attn.py``) are compiled by one ``nvcc`` call for sm_90a into
-``build/kernels/`` at the repository root on first use and bound with
+``ops/recur_attn.py``) are compiled for sm_90a, one ``nvcc`` per source,
+into ``build/kernels/`` at the repository root on first use and bound with
 ``ctypes``.
 """
 from __future__ import annotations
@@ -53,13 +52,12 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("mlstm_fwd.cu", "mlstm_bwd.cu",
                              "recur_attn_fwd.cu", "recur_attn_bwd.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
-                for name in ("common.cuh", "lstm_tc.cuh"))
+                for name in ("common.cuh", "lstm_tc.cuh", "recur_tc.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 LIBRARY = os.path.join(BUILD_DIR, "libmlstm.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC"]
 
-MAX_HIDDEN = 1024                 # B3 (csrc/mlstm_fwd.cu)
 SMEM_BYTES = 232448               # shared memory a block may use on sm_90
 SMS = 132                         # streaming multiprocessors of an H100
 # csrc/lstm_tc.cuh: hidden size padded to a multiple of BWD_PAD; its
@@ -189,44 +187,10 @@ def mlstm_attn_bwd_plain(pixel_term: torch.Tensor,   # [N, P, 4H] f32
     return _bwd_plain(pixel_term, step_term, w_h, valid, g, attn=attn)
 
 
-def pad_gates(x: torch.Tensor, hidden: int, width: int) -> torch.Tensor:
-    """[..., 4*hidden] -> [..., 4*width]: each of the four gate blocks
-    zero-padded from ``hidden`` to ``width`` columns (``x`` itself when they
-    are equal)."""
-    if width == hidden:
-        return x
-    blocks = x.reshape(*x.shape[:-1], 4, hidden)
-    return torch.nn.functional.pad(blocks, (0, width - hidden)).reshape(
-        *x.shape[:-1], 4 * width)
-
-
-def pad_w_h(w_h: torch.Tensor, width: int) -> torch.Tensor:
-    """W_h [H, 4H] -> [width, 4*width]: zero rows and zero gate columns for
-    the padded units."""
-    hidden = w_h.shape[0]
-    return pad_gates(torch.nn.functional.pad(w_h, (0, 0, 0, width - hidden)),
-                     hidden, width)
-
-
-def padded_hidden(hidden: int, multiple: int = BWD_PAD) -> int:
-    """H rounded up to a multiple of ``multiple`` (by default BWD_PAD, the
-    tensor-core kernels' Hp)."""
-    return -(-hidden // multiple) * multiple
-
-
-def launch_geometry(hidden: int):
-    """(tile, kc, threads, shared-memory bytes) of B3 (``csrc/mlstm_fwd.cu``)
-    for hidden size H, padded to a multiple of 4: ``tile`` pixels per block,
-    W_h streamed in chunks of ``kc`` rows; each thread owns 2 units of 8
-    pixels; shared memory holds h twice, c and two W_h chunks.  Raises past
-    MAX_HIDDEN, which no configuration of the model reaches."""
-    if not 0 < hidden <= MAX_HIDDEN:
-        raise ValueError(f"mlstm_attn_cuda: hidden size {hidden} must be "
-                         f"between 1 and {MAX_HIDDEN}")
-    width = padded_hidden(hidden, 4)
-    tile, kc = (16, 8) if width <= 512 else (8, 4)
-    threads = width // 2 * tile // 8
-    return tile, kc, threads, 4 * width * (3 * tile + 8 * kc)
+def padded_hidden(hidden: int) -> int:
+    """Hp: H rounded up to a multiple of BWD_PAD, the width the kernels pad
+    the hidden units to."""
+    return -(-hidden // BWD_PAD) * BWD_PAD
 
 
 def product_smem(bm: int, bn: int, a_outer: bool, b_outer: bool,
@@ -251,7 +215,7 @@ BWD_BLOCKS_PER_SM = (2, 3, 2)
 
 
 def fwd_geometry(rows: int, hidden: int):
-    """(Hp, shared-memory bytes) of B1 (``csrc/mlstm_fwd.cu``, the
+    """(Hp, shared-memory bytes) of B1 and B3 (``csrc/mlstm_fwd.cu``, the
     tensor-core launch sequence of ``csrc/lstm_tc.cuh``) for ``rows`` = N*P
     pixel rows: H padded to Hp, a multiple of 128, and the staging tile's
     shared memory.  Raises on more than 65535 tiles of 128 rows."""
@@ -346,9 +310,9 @@ def build() -> str:
 
 # C entry points of the library: (number of pointer arguments, number of
 # int arguments); each then takes the stream and returns a cudaError_t.
-_ENTRIES = {"mlstm_fwd": (8, 5), "mlstm_attn_fwd": (6, 6),
+_ENTRIES = {"mlstm_fwd": (8, 5), "mlstm_attn_fwd": (9, 5),
             "mlstm_bwd": (15, 6), "mlstm_attn_bwd": (18, 6),
-            "recur_attn_fwd": (8, 6), "recur_attn_bwd": (28, 9)}
+            "recur_attn_fwd": (15, 5), "recur_attn_bwd": (28, 9)}
 
 
 def library() -> ctypes.CDLL:
@@ -426,6 +390,28 @@ def _check_cuda_inputs(name: str, pixel_term, step_term, w_h, valid,
     return n, p, hidden, t_max
 
 
+def _fwd_cuda(name, pixel_term, step_term, w_h, valid, attn=None):
+    n, p, hidden, t_max = _check_cuda_inputs(name, pixel_term, step_term,
+                                             w_h, valid, attn=attn)
+    hp, _ = fwd_geometry(n * p, hidden)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=pixel_term.device)
+
+    out = empty(n, p, hidden)
+    scratch = (empty(hp, 4 * hp),                          # permuted W_h
+               empty(n * t_max + 2, dtype=torch.int32),    # slot table
+               empty(2, 2, n * p, hp))                     # h, c ping-pong
+    sizes = (n, p, hidden, t_max, hp)
+    if attn is None:
+        launch("mlstm_fwd", pixel_term.device, pixel_term, step_term, w_h,
+               valid, out, *scratch, *sizes)
+    else:
+        launch("mlstm_attn_fwd", pixel_term.device, pixel_term, step_term,
+               w_h, valid, attn, out, *scratch, *sizes)
+    return out
+
+
 def mlstm_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
                w_h: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """Launch B1 (``csrc/mlstm_fwd.cu``) on the current stream: the slot
@@ -435,17 +421,7 @@ def mlstm_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
     Allocates the permuted W_h [Hp, 4Hp], the slot table and the running h
     and c [2, 2, N*P, Hp].  Never synchronises with the host.
     ``mlstm_cuda.launches`` counts launches."""
-    n, p, hidden, t_max = _check_cuda_inputs("mlstm_cuda", pixel_term,
-                                             step_term, w_h, valid)
-    hp, _ = fwd_geometry(n * p, hidden)
-
-    def empty(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=pixel_term.device)
-
-    out = empty(n, p, hidden)
-    launch("mlstm_fwd", pixel_term.device, pixel_term, step_term, w_h, valid,
-           out, empty(hp, 4 * hp), empty(n * t_max + 2, dtype=torch.int32),
-           empty(2, 2, n * p, hp), n, p, hidden, t_max, hp)
+    out = _fwd_cuda("mlstm_cuda", pixel_term, step_term, w_h, valid)
     mlstm_cuda.launches += 1
     return out
 
@@ -456,23 +432,15 @@ mlstm_cuda.launches = 0
 def mlstm_attn_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
                     w_h: torch.Tensor, valid: torch.Tensor,
                     attn: torch.Tensor) -> torch.Tensor:
-    """Launch B3 (``csrc/mlstm_fwd.cu``): acc [N, P, H].  Takes what
-    ``mlstm_cuda`` takes, H up to MAX_HIDDEN, plus f32 ``attn`` [N, T];
-    raises on anything else.  Each gate block is zero-padded to a multiple
-    of 4 units when H is not one (``pad_gates``), and acc sliced back.
-    ``mlstm_attn_cuda.launches`` counts launches."""
-    n, p, hidden, t_max = _check_cuda_inputs("mlstm_attn_cuda", pixel_term,
-                                             step_term, w_h, valid, attn=attn)
-    tile, kc, _, _ = launch_geometry(hidden)
-    width = padded_hidden(hidden, 4)
-    out = torch.empty((n, p, width), dtype=torch.float32,
-                      device=pixel_term.device)
-    launch("mlstm_attn_fwd", pixel_term.device,
-           pad_gates(pixel_term, hidden, width),
-           pad_gates(step_term, hidden, width), pad_w_h(w_h, width), valid,
-           attn, out, n, p, width, t_max, tile, kc)
+    """Launch B3 (``csrc/mlstm_fwd.cu``), the attention mode of B1's launch
+    sequence: acc [N, P, H].  Takes what ``mlstm_cuda`` takes (any H) plus
+    f32 ``attn`` [N, T]; raises on anything else.  Allocates B1's scratch;
+    never synchronises with the host.  ``mlstm_attn_cuda.launches`` counts
+    launches."""
+    out = _fwd_cuda("mlstm_attn_cuda", pixel_term, step_term, w_h, valid,
+                    attn)
     mlstm_attn_cuda.launches += 1
-    return out if width == hidden else out[..., :hidden].contiguous()
+    return out
 
 
 mlstm_attn_cuda.launches = 0

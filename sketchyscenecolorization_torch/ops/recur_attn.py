@@ -20,12 +20,12 @@ and ``recur_attn_bwd_plain`` (also the kernels' test oracles); a CUDA
 tensor goes through ``recur_attn_cuda`` and ``recur_attn_bwd_cuda``, which
 launch the hand-written kernels B5 (``csrc/recur_attn_fwd.cu``) and B6
 (``csrc/recur_attn_bwd.cu``) of the library ``ops/mlstm.py`` builds, or
-raise.  Both take w == H (the RecurAttn config sets both to 256) and any T
-whose lang[n] fits in shared memory (``recur_geometry``,
-``recur_bwd_geometry``); T is never padded, since the softmax runs over all
-T.  B5 takes H a multiple of 64 up to 512; B6 runs on the tensor cores
-through ``csrc/lstm_tc.cuh`` and takes any H (padded inside to Hp, a
-multiple of 128).
+raise.  Both run their products on the tensor cores (B5 is B6's staging
+forward, the kernels of ``csrc/recur_tc.cuh``, without the stores) and take
+w == H (the RecurAttn config sets both to 256), any H (padded inside to Hp,
+a multiple of 128) and any T whose lang[n] fits in shared memory
+(``recur_geometry``, ``recur_bwd_geometry``); T is never padded, since the
+softmax runs over all T.
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ from .mlstm import (BWD_BK, SMEM_BYTES, check_cuda_tensors, launch,
 # csrc/recur_attn_bwd.cu: the bias sums add the staged rows in this many
 # chunks at most, each chunk at least COL_ROWS rows
 COL_CHUNKS, COL_ROWS = 512, 512
+SOFTMAX_WARPS = 8   # warps of F2 (csrc/recur_tc.cuh), one pixel row each
 
 
 def recur_attn_plain(h0: torch.Tensor,      # [N, P, H] f32
@@ -118,28 +119,27 @@ def recur_attn_bwd_plain(h0, lang, wp, bp, wm, bm, valid,
     return dh, d_lang, d_wp, d_bp, d_wm, d_bm
 
 
-def recur_geometry(hidden: int, t_max: int):
-    """(tile, kc, threads, shared-memory bytes) of B5
-    (``csrc/recur_attn_fwd.cu``): a thread owns 2 units of 8 pixels; shared
-    memory holds two [tile, 2H] input rows, c, h_proj, lang[n] [T, H], the
-    [tile, T] logits and two weight stages (Wp streamed in chunks of 4*kc
-    rows, Wm in chunks of kc rows).  Raises on H that is not a multiple of
-    64 up to 512, and on a T whose shared memory does not fit (T <= 63 at
-    H = 256, T <= 32 at H = 512)."""
-    if hidden % 64 or not 64 <= hidden <= 512:
-        raise ValueError(f"recur_attn_cuda: hidden size {hidden} must be a "
-                         "multiple of 64 up to 512")
-    tile, kc = (16, 8) if hidden <= 256 else (8, 4)
-    threads = hidden // 2 * tile // 8
-    fixed = 4 * (2 * tile * 2 * hidden + 2 * tile * hidden
-                 + 2 * kc * 4 * hidden)
-    smem = fixed + 4 * t_max * (hidden + tile)
-    if t_max <= 0 or smem > SMEM_BYTES:
+def recur_geometry(rows: int, hidden: int, t_max: int):
+    """(Hp, shared-memory bytes of F2) of B5 (``csrc/recur_attn_fwd.cu``)
+    for ``rows`` = N*P pixel rows: H padded to Hp, a multiple of 128; F2
+    holds lang[n] [T, Hp] and, for each of its 8 warps, an h_proj row and
+    its T logits.  Raises on a T whose shared memory does not fit (T <= 212
+    at H = 256, T <= 103 at H = 512) and on more than 65535 tiles of 64
+    rows."""
+    if hidden <= 0 or t_max <= 0:
+        raise ValueError(f"recur_attn_cuda: H={hidden} and T={t_max} must be "
+                         "positive")
+    if not 0 < rows <= 65535 * 64:
+        raise ValueError(f"recur_attn_cuda: {rows} pixel rows (N*P) must be "
+                         f"between 1 and {65535 * 64}")
+    hp = padded_hidden(hidden)
+    smem = 4 * (t_max * hp + SOFTMAX_WARPS * (hp + t_max))
+    if smem > SMEM_BYTES:
         raise ValueError(
             f"recur_attn_cuda: T={t_max} must be 1.."
-            f"{(SMEM_BYTES - fixed) // (4 * (hidden + tile))} at H={hidden} "
-            "(lang[n] and the logits in shared memory)")
-    return tile, kc, threads, smem
+            f"{(SMEM_BYTES // 4 - SOFTMAX_WARPS * hp) // (hp + SOFTMAX_WARPS)}"
+            f" at Hp={hp} (lang[n] in shared memory)")
+    return hp, smem
 
 
 def recur_bwd_geometry(rows: int, hidden: int, t_max: int):
@@ -203,14 +203,25 @@ def recur_attn_cuda(h0: torch.Tensor, lang: torch.Tensor, wp: torch.Tensor,
                     valid: torch.Tensor) -> torch.Tensor:
     """Launch B5 (``csrc/recur_attn_fwd.cu``) on the current stream: the
     final h [N, P, H].  Takes f32 tensors, int32 ``valid``, contiguous and
-    16-byte aligned on one CUDA device; raises on anything else.
+    16-byte aligned on one CUDA device, any H and a T up to
+    ``recur_geometry``'s limit; raises on anything else.  Allocates the
+    scratch of H padded to Hp: the permuted Wm, padded Wp and lang, the slot
+    table, and the running [x, h] [2, N*P, 2Hp], c [2, N*P, Hp] and h_proj
+    [N*P, Hp].  Never synchronises with the host.
     ``recur_attn_cuda.launches`` counts launches."""
     n, p, hidden, t_max = _check("recur_attn_cuda", h0, lang, wp, bp, wm,
                                  bm, valid)
-    tile, kc, _, _ = recur_geometry(hidden, t_max)
+    rows = n * p
+    hp, _ = recur_geometry(rows, hidden, t_max)
+
+    def empty(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=h0.device)
+
     out = torch.empty_like(h0)
     launch("recur_attn_fwd", h0.device, h0, lang, wp, bp, wm, bm, valid, out,
-           n, p, hidden, t_max, tile, kc)
+           empty(2 * hp, 4 * hp), empty(hp, hp), empty(n, t_max, hp),
+           empty(n * t_max + 2, dtype=torch.int32), empty(2, rows, 2 * hp),
+           empty(2, rows, hp), empty(rows, hp), n, p, hidden, t_max, hp)
     recur_attn_cuda.launches += 1
     return out
 
@@ -221,7 +232,7 @@ recur_attn_cuda.launches = 0
 def recur_attn_bwd_cuda(h0, lang, wp, bp, wm, bm, valid, g: torch.Tensor):
     """Launch B6 (``csrc/recur_attn_bwd.cu``) on the current stream: (d_h0,
     d_lang, d_wp, d_bp, d_wm, d_bm).  Takes what ``recur_attn_cuda`` takes
-    (but any H, and a T up to ``recur_bwd_geometry``'s limit) plus f32 ``g``
+    (but a T up to ``recur_bwd_geometry``'s limit) plus f32 ``g``
     [N, P, H]; raises on anything else.  Allocates the scratch of H padded
     to Hp: the permuted Wm, padded Wp and lang, the slot table, the staged
     forward ([x, h] [T, N*P, 2Hp]; c, h_proj and dh_proj [T, N*P, Hp]; the

@@ -14,13 +14,12 @@ the tensor cores; ``tf32_round`` and ``matmul_3xtf32_plain`` repeat that
 arithmetic here: TF32 rounding on chosen bit patterns, and the 3xTF32
 product at the RMI step shape cut to 256 pixels within 1e-6 of float64
 (measured 4.8e-7, as plain f32's 5.5e-7) where one TF32 pass is off by
-2.9e-4 of the result's magnitude; the same at the products of B6.  The
-kernels take any H by zero padding (B1/B2/B4 and B6 to Hp, a multiple of
-128, inside; B3's wrapper each gate block to a multiple of 4): through the
-plain versions, the padded problem at H = 250 gives h and acc exactly at
-the width B3 pads to (252) and within 2e-7 at Hp = 256 (the sums run over
-K = 256 in another order), and every gradient within 1e-6 of its largest
-magnitude.
+2.9e-4 of the result's magnitude; the same at the products of B5/B6.  The
+kernels take any H by zero padding (to Hp, a multiple of 128, inside):
+through the plain versions, the padded problem at H = 250 gives h and acc
+exactly with each gate block padded to a multiple of 4 (252) and within
+2e-7 at Hp = 256 (the sums run over K = 256 in another order), and every
+gradient within 1e-6 of its largest magnitude.
 
 jax is imported inside the parity test only, so that the card's test run
 (which has no jax, see README) can import this file."""
@@ -139,10 +138,14 @@ def test_cpu_tensors_take_the_plain_path_and_cuda_entry_refuses_them():
 
 @pytest.mark.parametrize("hidden", [8, 100, 500, 512, 1024])
 def test_launch_geometry_fits_the_card(hidden):
-    tile, kc, threads, smem = mlstm.launch_geometry(hidden)
-    assert tile % 8 == 0 and kc % 4 == 0
-    assert threads == hidden // 2 * tile // 8 <= 512
-    assert smem <= mlstm.SMEM_BYTES
+    """B1's and B3's launch sequence (``fwd_geometry``): H padded to Hp, the
+    128x128 stage tile's shared memory, two blocks of it on an SM (plus 1 KB
+    each that the card reserves)."""
+    hp, smem = mlstm.fwd_geometry(9216, hidden)
+    assert hp == mlstm.padded_hidden(hidden)
+    assert hp % mlstm.BWD_PAD == 0 and hidden <= hp < hidden + mlstm.BWD_PAD
+    assert smem == mlstm.product_smem(*mlstm.BWD_TILES[0]) <= mlstm.SMEM_BYTES
+    assert 2 * (smem + 1024) <= 233472
 
 
 @pytest.mark.parametrize("rows,hidden", [(9216, 500), (144, 512),
@@ -170,41 +173,52 @@ def test_bwd_geometry_refuses_unsupported_rows(rows):
 
 @pytest.mark.parametrize("hidden", [6, 1028])
 def test_launch_geometry_refuses_unsupported_hidden(hidden):
-    """B1, B2 and B4 take any H (padded to Hp inside); B3 takes any H up to
-    MAX_HIDDEN (each gate block padded to a multiple of 4 by its wrapper)
-    and refuses more, which no configuration of the model reaches."""
+    """B1-B4 take any positive H (padded to Hp inside; B3 past 1024 too, since
+    it runs on B1's launch sequence) and refuse the negative one."""
     hp = mlstm.padded_hidden(hidden)
     assert hp % mlstm.BWD_PAD == 0 and hidden <= hp < hidden + mlstm.BWD_PAD
     assert mlstm.fwd_geometry(64, hidden)[0] == hp
     assert mlstm.bwd_geometry(64, hidden)[0] == hp
-    if hidden <= mlstm.MAX_HIDDEN:
-        tile, _, threads, smem = mlstm.launch_geometry(hidden)
-        assert threads == mlstm.padded_hidden(hidden, 4) // 2 * tile // 8
-        assert smem <= mlstm.SMEM_BYTES
-    else:
-        with pytest.raises(ValueError, match="between 1 and"):
-            mlstm.launch_geometry(hidden)
+    for geometry in (mlstm.fwd_geometry, mlstm.bwd_geometry):
+        with pytest.raises(ValueError, match="must be positive"):
+            geometry(64, -hidden)
+
+
+def pad_gates(x: torch.Tensor, hidden: int, width: int) -> torch.Tensor:
+    """[..., 4*hidden] -> [..., 4*width]: each of the four gate blocks
+    zero-padded from ``hidden`` to ``width`` columns, as the kernels pad the
+    gate columns of their weights."""
+    blocks = x.reshape(*x.shape[:-1], 4, hidden)
+    return torch.nn.functional.pad(blocks, (0, width - hidden)).reshape(
+        *x.shape[:-1], 4 * width)
+
+
+def pad_w_h(w_h: torch.Tensor, width: int) -> torch.Tensor:
+    """W_h [H, 4H] -> [width, 4*width]: zero rows and zero gate columns for
+    the padded units."""
+    hidden = w_h.shape[0]
+    return pad_gates(torch.nn.functional.pad(w_h, (0, 0, 0, width - hidden)),
+                     hidden, width)
 
 
 def _unpad_gates(x, hidden):
     """[..., 4*width] -> [..., 4*hidden]: the first ``hidden`` columns of
-    each gate block (the inverse of ``mlstm.pad_gates``)."""
+    each gate block (the inverse of ``pad_gates``)."""
     width = x.shape[-1] // 4
     return x.reshape(*x.shape[:-1], 4, width)[..., :hidden].reshape(
         *x.shape[:-1], 4 * hidden)
 
 
 def _padded(pixel, step, w_h, width):
-    return (mlstm.pad_gates(pixel, pixel.shape[-1] // 4, width),
-            mlstm.pad_gates(step, step.shape[-1] // 4, width),
-            mlstm.pad_w_h(w_h, width))
+    return (pad_gates(pixel, pixel.shape[-1] // 4, width),
+            pad_gates(step, step.shape[-1] // 4, width), pad_w_h(w_h, width))
 
 
 @pytest.mark.parametrize("width", [252, 256])
 @pytest.mark.parametrize("variant", ["plain", "attn"])
 def test_zero_padding_to_any_width_is_exact(variant, width):
-    """The padding of C1 through the plain versions at H = 250: to B3's
-    multiple of 4 (252) and to the tensor-core kernels' Hp (256)."""
+    """The padding of C1 through the plain versions at H = 250: each gate
+    block to a multiple of 4 (252) and to the kernels' Hp (256)."""
     hidden, t = 250, 5
     pixel, step, w_h = (torch.from_numpy(a)
                         for a in _inputs(2, 12, hidden, t, seed=3))
@@ -265,15 +279,16 @@ def test_tf32_round_keeps_nan():
 
 
 @pytest.mark.parametrize("product", ["forward", "sweep", "recur_sweep",
-                                     "recur_proj"])
+                                     "recur_proj", "recur_gates"])
 def test_3xtf32_product_keeps_f32_accuracy(product):
-    """The kernels' products in 3xTF32 with P cut to 256: B1/B2's at the RMI
+    """The kernels' products in 3xTF32 with P cut to 256: B1-B4's at the RMI
     step shape (h [256, 500] @ W_h [500, 2000]; dgates [256, 2000] @
-    W_h^T) and B6's at the RecurAttn shape padded to Hp = 256 (dgates
-    [256, 1024] @ Wm^T [1024, 512]; h [256, 256] @ Wp, K = 256): within
-    1e-6 of the float64 product's largest magnitude, where a single TF32
-    pass is off by more than 1e-4 of it.  This is why the kernels hold
-    BWD_TOL = 1e-4 against the f32 plain versions."""
+    W_h^T) and B5/B6's at the RecurAttn shape padded to Hp = 256 (dgates
+    [256, 1024] @ Wm^T [1024, 512]; h [256, 256] @ Wp, K = 256; F3's [x, h]
+    [256, 512] @ Wm [512, 1024], K = 2Hp, their largest): within 1e-6 of
+    the float64 product's largest magnitude, where a single TF32 pass is off
+    by more than 1e-4 of it.  This is why the kernels hold BWD_TOL = 1e-4
+    against the f32 plain versions."""
     rng = np.random.RandomState(5)
     w_h = rng.randn(500, 2000) * 0.05
     if product == "forward":
@@ -282,8 +297,10 @@ def test_3xtf32_product_keeps_f32_accuracy(product):
         a, b = rng.randn(256, 2000) * 0.1, w_h.T
     elif product == "recur_sweep":
         a, b = rng.randn(256, 1024) * 0.1, rng.randn(1024, 512) * 0.25 / 16
-    else:
+    elif product == "recur_proj":
         a, b = rng.uniform(-1, 1, (256, 256)), rng.randn(256, 256) / 16
+    else:
+        a, b = rng.uniform(-1, 1, (256, 512)), rng.randn(512, 1024) / 16
     a32, b32 = (torch.from_numpy(x.astype(np.float32)) for x in (a, b))
     want = a32.double() @ b32.double()
     scale = float(want.abs().max())

@@ -7,8 +7,11 @@ valid step.  Tolerance 1e-5 absolute on acc and on the four gradients,
 d_attn included (f32, T <= 6 steps; measured max-abs 6.0e-8 on acc,
 1.8e-6 on the gradients).  The CUDA kernels B3 and B4 run only
 on the card (``cuda`` marker): B3 is held against ``mlstm_attn_plain`` to
-1e-4, B4 against ``mlstm_attn_bwd_plain`` to 1e-4 of each gradient's
-largest magnitude, and two B4 launches must agree bit for bit.
+1e-4 max-abs (and a row without a kept step must give exact zeros), B4
+against ``mlstm_attn_bwd_plain`` to 1e-4 of each gradient's largest
+magnitude, and two B4 launches must agree bit for bit; both take any H,
+1028 (past the 1024 that B3 took before it ran on B1's launch sequence)
+included.
 
 jax is imported inside the parity tests only, so that the card's test run
 (which has no jax, see README) can import this file."""
@@ -157,6 +160,7 @@ SHAPES = [
     (2, 37, 100, 7, [7, 0]),          # ragged tile, a row with no valid step
     (3, 5, 8, 6, [2, 6, 1]),          # smaller than one tile
     (2, 37, 250, 7, [7, 3]),          # H not a multiple of 4
+    (2, 37, 1028, 5, [5, 2]),         # H past 1024
 ]
 
 
@@ -180,6 +184,8 @@ def test_kernels_match_plain_on_cuda(cuda_device, shape):
     assert mlstm.mlstm_attn_cuda.launches == before + 1
     torch.testing.assert_close(got, mlstm.mlstm_attn_plain(*args, valid, attn),
                                rtol=0, atol=1e-4)
+    empty = (valid == 0).all(1)
+    assert not got[empty].any()               # no kept step: exact zeros
     grads = mlstm.mlstm_attn_bwd_cuda(*args, valid, attn, g)
     again = mlstm.mlstm_attn_bwd_cuda(*args, valid, attn, g)
     want = mlstm.mlstm_attn_bwd_plain(*args, valid, attn, g)

@@ -6,14 +6,15 @@ mid-sequence-padded masks (RecurAttn masks by ``words != 0`` and skips a pad
 wherever it falls), pixel counts that are not a multiple of the tile and a
 row with no valid step, and T = 20 (past the 16 steps the kernels took
 before).  Tolerance 1e-5 absolute on h and on the six gradients (f32;
-measured max-abs 8.9e-8 on h, 1.9e-6 on the gradients at T <= 6).  B6
-pads H to Hp inside (zero rows and columns, Wm's gate blocks padded one by
-one): through the plain versions the padded problem at H = 250 gives h
+measured max-abs 8.9e-8 on h, 1.9e-6 on the gradients at T <= 6).  B5 and
+B6 pad H to Hp inside (zero rows and columns, Wm's gate blocks padded one
+by one): through the plain versions the padded problem at H = 250 gives h
 within 2e-7 and every gradient within 1e-6 of its largest magnitude.  The
 CUDA kernels B5 and B6 run only on the card (``cuda`` marker): B5 is held
-against ``recur_attn_plain`` to 1e-4, B6 against ``recur_attn_bwd_plain``
-to 1e-4 of each gradient's largest magnitude, and two B6 launches must
-agree bit for bit.
+against ``recur_attn_plain`` to 1e-4 max-abs (also at H = 250, at its T
+limit and with a row without a kept step, whose output must be h0 bit for
+bit), B6 against ``recur_attn_bwd_plain`` to 1e-4 of each gradient's
+largest magnitude, and two B6 launches must agree bit for bit.
 
 jax is imported inside the parity tests only, so that the card's test run
 (which has no jax, see README) can import this file."""
@@ -22,7 +23,8 @@ import pytest
 import torch
 
 from sketchyscenecolorization_torch.ops import recur_attn
-from sketchyscenecolorization_torch.ops.mlstm import SMEM_BYTES, pad_gates
+from sketchyscenecolorization_torch.ops.mlstm import SMEM_BYTES
+from test_torch_mlstm import pad_gates
 
 ATOL = 1e-5
 NAMES = ("d_h0", "d_lang", "d_wp", "d_bp", "d_wm", "d_bm")
@@ -136,11 +138,10 @@ def test_cpu_tensors_take_the_plain_path_and_cuda_entries_refuse_them():
 @pytest.mark.parametrize("hidden,t", [(64, 5), (256, 15), (256, 16),
                                       (512, 15)])
 def test_geometry_fits_the_card(hidden, t):
-    tile, kc, threads, smem = recur_attn.recur_geometry(hidden, t)
-    assert tile % 8 == 0 and kc % 4 == 0 and threads % 32 == 0
-    assert threads == hidden // 2 * tile // 8 <= 256
+    hp, smem = recur_attn.recur_geometry(9216, hidden, t)
+    assert hp % 128 == 0 and hidden <= hp < hidden + 128
+    assert smem == 4 * (t * hp + recur_attn.SOFTMAX_WARPS * (hp + t))
     assert smem <= SMEM_BYTES
-    assert (2 * hidden) % kc == 0 and hidden % (4 * kc) == 0
     hp, split_wm, split_wp, rows, chunks, bwd = recur_attn.recur_bwd_geometry(
         9216, hidden, t)
     assert hp % 128 == 0 and hidden <= hp < hidden + 128
@@ -151,27 +152,33 @@ def test_geometry_fits_the_card(hidden, t):
 
 @pytest.mark.parametrize("hidden,t", [(96, 5), (1024, 5), (256, 17)])
 def test_geometry_refuses_what_the_kernels_do_not_take(hidden, t):
-    """B5 refuses H that is not a multiple of 64 up to 512, but takes T =
-    17 (any T whose shared memory fits, since C1); B6 takes all three."""
-    hp = recur_attn.recur_bwd_geometry(74, hidden, t)[0]
-    assert hp == -(-hidden // 128) * 128
-    if hidden % 64 or hidden > 512:
-        with pytest.raises(ValueError, match="multiple of 64"):
-            recur_attn.recur_geometry(hidden, t)
-    else:
-        assert recur_attn.recur_geometry(hidden, t)[3] <= SMEM_BYTES
+    """B5 and B6 take any H (padded to Hp inside; B5 took only multiples of
+    64 up to 512 before it ran on B6's kernels) and any T whose shared
+    memory fits, and refuse a non-positive H or T and more pixel rows than
+    their grids hold."""
+    hp = -(-hidden // 128) * 128
+    assert recur_attn.recur_geometry(74, hidden, t)[0] == hp
+    assert recur_attn.recur_bwd_geometry(74, hidden, t)[0] == hp
+    for geometry in (recur_attn.recur_geometry,
+                     recur_attn.recur_bwd_geometry):
+        for bad in ((74, -hidden, t), (74, hidden, 0)):
+            with pytest.raises(ValueError, match="must be positive"):
+                geometry(*bad)
+        with pytest.raises(ValueError, match="pixel rows"):
+            geometry(65535 * 64 + 1, hidden, t)
 
 
-@pytest.mark.parametrize("kernel,hidden,t_max", [("fwd", 256, 63),
-                                                 ("fwd", 512, 32),
+@pytest.mark.parametrize("kernel,hidden,t_max", [("fwd", 256, 212),
+                                                 ("fwd", 512, 103),
                                                  ("bwd", 256, 198)])
 def test_geometry_states_the_t_limit(kernel, hidden, t_max):
     """The longest sequence each kernel takes, set by lang[n] in shared
-    memory (B6 at its fewest, 8, attention rows a block)."""
+    memory (B5 beside F2's 8 warps' rows, B6 at its fewest, 8, attention
+    rows a block)."""
     if kernel == "fwd":
-        recur_attn.recur_geometry(hidden, t_max)
+        recur_attn.recur_geometry(9216, hidden, t_max)
         with pytest.raises(ValueError, match=f"1..{t_max} "):
-            recur_attn.recur_geometry(hidden, t_max + 1)
+            recur_attn.recur_geometry(9216, hidden, t_max + 1)
     else:
         assert recur_attn.recur_bwd_geometry(9216, hidden, t_max)[3] == 8
         with pytest.raises(ValueError, match=f"1..{t_max} "):
@@ -179,9 +186,10 @@ def test_geometry_states_the_t_limit(kernel, hidden, t_max):
 
 
 def test_zero_padding_to_hp_is_exact():
-    """B6's padding through the plain versions at H = w = 250: h0, lang, Wp
-    and bp zero-padded to Hp = 256, Wm's x rows and h rows each padded to
-    Hp and its gate blocks one by one (``pad_gates``), bm likewise."""
+    """B5's and B6's padding through the plain versions at H = w = 250: h0,
+    lang, Wp and bp zero-padded to Hp = 256, Wm's x rows and h rows each
+    padded to Hp and its gate blocks one by one (``pad_gates``), bm
+    likewise."""
     hidden, hp, t = 250, 256, 5
     h0, lang, wp, bp, wm, bm = (torch.from_numpy(a) for a in _inputs(
         2, 9, hidden, hidden, t, seed=7))
@@ -280,3 +288,27 @@ def test_autograd_launches_both_kernels_on_cuda(cuda_device):
     for a, b in zip(got, recur_attn.recur_attn_bwd_plain(*args, valid, g)):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+FWD_SHAPES = [
+    # n, p, hidden, t, valid rows
+    (2, 37, 250, 6, [[1, 1, 0, 1, 1, 1], [1, 1, 1, 0, 0, 0]]),   # H = 250
+    (1, 40, 256, 212, [[1] * 9 + [0] * 203]),                    # T limit
+    (3, 37, 256, 5, [[1, 1, 1, 0, 0], [0] * 5, [0, 1, 0, 1, 0]]),  # no step
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", FWD_SHAPES, ids=str)
+def test_forward_kernel_takes_any_h_its_t_limit_and_empty_rows_on_cuda(
+        cuda_device, shape):
+    """B5 alone (B6's T limit is lower): within 1e-4 max-abs of
+    ``recur_attn_plain``, and h0 bit for bit where a row has no kept step."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, valid, _ = _cuda_inputs(cuda_device, *shape)
+    got = recur_attn.recur_attn_cuda(*args, valid)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, recur_attn.recur_attn_plain(*args, valid),
+                               rtol=0, atol=1e-4)
+    empty = (valid == 0).all(1)
+    assert torch.equal(got[empty], args[0][empty])
