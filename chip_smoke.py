@@ -28,20 +28,33 @@ and prints no result):
      session (plain PyTorch path) on a small synthetic scene, with the same
      seeded parameters and noise: records byte-equal, matched instances
      equal, canvases within 1 uint8 LSB and byte-equal outside the
-     instances' inner masks;
+     instances' inner masks; then a mixed FG/BG sequence (BG, FG, BG,
+     withdraw, BG) the same way with the sky gradient off: records
+     byte-equal, canvases within 1 LSB and byte-equal on the drawings;
   6. three matching train steps at a small config on CUDA and on the CPU
      from the same seeded weights and batches: costs and text leaves agree,
      ResNet bit-unchanged;
   7. write a synthetic 768x768 scene and run the session at the default
      full-width configuration on the card: a FG ``color`` command, a FG
      pass forced onto every eligible instance, a ``withdraw`` and a second
-     ``color`` command, with B1's launches counted;
+     ``color`` command, with B1's launches counted; then the BG branch at
+     the default full width (ResidualGenerator, ngf 64, 768^2): the sky
+     gradient's LUT built and timed apart, a FG command, then a cold BG
+     command and 12 warm ones (path ``color_bg``: B1 at P = 576, H = 1024,
+     T = 8, one launch a command), with the generator's device time, the
+     engine call, the gradient and the PNG writes timed apart, peak device
+     memory, one generator forward profiled by kernel, the results
+     checked;
   8. write a synthetic 768x768 matching corpus and run ``cli_matching
      --mode train`` at the default full-width configuration for 6 steps,
      then resume it for 2 more: B1 and B2 launch every step, losses are
      finite, the text leaves move and ResNet does not, the snapshot is
      written and resumed; step wall times, B2's share of a step
-     (``torch.profiler``) and peak device memory;
+     (``torch.profiler``) and peak device memory; a session built on the
+     run's snapshots holds the trained weights and gives the trained
+     module's ``up`` logits bit for bit, and ``cli_matching --mode
+     inference`` on the run writes its prediction (path
+     ``infer_matching``);
   9. hold B3/B4 against ``mlstm_attn_plain``/``mlstm_attn_bwd_plain`` at
      the RMI shape, a ragged one with a row without a kept step and H = 250
      (acc within 1e-4; each gradient, d_attn included, within 1e-4 of its
@@ -694,9 +707,11 @@ def check_variant_kernels(kind):
     return results
 
 
-def small_config(tmp: str, size: int = 64, variant: str = ""):
+def small_config(tmp: str, size: int = 64, variant: str = "",
+                 color_gradient: bool = True):
     from sketchyscenecolorization_torch.config import (
-        FGGanConfig, FrameworkConfig, MatchingConfig, PipelineConfig)
+        BGGanConfig, FGGanConfig, FrameworkConfig, MatchingConfig,
+        PipelineConfig)
     return FrameworkConfig(
         matching=MatchingConfig(vf_h=size // 8, vf_w=size // 8, H=size,
                                 W=size, vocab_size=16, w_emb_dim=16,
@@ -704,12 +719,15 @@ def small_config(tmp: str, size: int = 64, variant: str = ""):
                                 max_len=6, **VARIANTS.get(variant, {})),
         fg_gan=FGGanConfig(image_size=size, vocab_size=16, max_len=6,
                            base_channels=4, noise_dim=8),
+        bg_gan=BGGanConfig(image_size=size, vocab_size=16, max_len=8, ngf=4,
+                           ndf=4, multi_residual=False),
         pipeline=PipelineConfig(
             data_base_dir=os.path.join(tmp, "examples"),
             results_base_dir=os.path.join(tmp, "outputs"),
             match_vocab_path="", fg_vocab_path="", bg_vocab_path="",
             match_ckpt_dir="", fg_ckpt_dir="", bg_ckpt_dir="",
-            image_size=size, instance_size=size, device_compositing=False))
+            image_size=size, instance_size=size,
+            color_gradient=color_gradient, device_compositing=False))
 
 
 def run_sequence(session, eligible, texts):
@@ -785,6 +803,291 @@ def check_against_cpu(build_session, variant: str = ""):
     log(f"small scene{' (' + variant + ' fusion)' if variant else ''}, CUDA "
         f"vs CPU session: matched {m_gpu}, records byte-equal, "
         f"{len(img_cpu)} canvases, max diff {worst} LSB")
+
+
+# BG first (the records' merge starts from the default BG text), a FG
+# command, a BG one that merges with the first, withdraw, BG again
+MIXED_SEQUENCE = ["the sky is blue", "the bus is yellow", "the ground is green",
+                  None, "the sky is red and the ground is brown"]
+
+
+def run_mixed(session, sequence=MIXED_SEQUENCE):
+    for text in sequence:
+        if text is None:
+            session.withdraw(IMAGE_ID)
+        else:
+            session.colorize(IMAGE_ID, text)
+
+
+def check_bg_against_cpu(build_session):
+    """The mixed FG/BG sequence through a CUDA and a CPU session on a small
+    scene, with the same seeded weights and the sky gradient off (its
+    sky-colour vote could move on a 1-LSB generator difference): records
+    byte-equal (the merged BG texts included), canvases within 1 uint8 LSB
+    and byte-equal on the drawings; the CUDA run launches B1 (the BG and
+    FG generators' text fusion), the CPU run no kernel."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        tmp = tempfile.mkdtemp(prefix=f"smoke_bg_small_{device}_")
+        write_scene(os.path.join(tmp, "examples"), 64)
+        session = build_session(small_config(tmp, color_gradient=False),
+                                seed=0, device=device)
+        reset_counts()
+        run_mixed(session)
+        launched = read_counts()["mlstm_fwd"]
+        if (launched < 1) if device == "cuda" else launched:
+            raise AssertionError(f"mlstm_fwd: {launched} launches in the "
+                                 f"{device} BG session")
+        runs.append(read_outputs(tmp))
+    (rec_gpu, img_gpu), (rec_cpu, img_cpu) = runs
+    if rec_gpu != rec_cpu or sorted(img_gpu) != sorted(img_cpu):
+        raise AssertionError(f"CUDA vs CPU BG session: records equal "
+                             f"{rec_gpu == rec_cpu}, files {sorted(img_gpu)} "
+                             f"vs {sorted(img_cpu)}")
+    state = session._state(IMAGE_ID)
+    inside = state.inner_mask != 0
+    worst = {"outside": 0, "inside": 0}
+    for name, want in img_cpu.items():
+        diff = np.abs(img_gpu[name].astype(int) - want.astype(int))
+        worst["outside"] = max(worst["outside"], int(diff[~inside].max()))
+        worst["inside"] = max(worst["inside"], int(diff[inside].max()))
+        if diff.max() > 1 or diff[state.drawings_region].any():
+            raise AssertionError(f"CUDA vs CPU BG canvas {name}: max diff "
+                                 f"{diff.max()}, on the drawings "
+                                 f"{int(diff[state.drawings_region].max())}")
+    records = json.loads(rec_gpu)
+    log(f"small scene, mixed FG/BG sequence, CUDA vs CPU session: records "
+        f"byte-equal ({[r['colorization_type'] for r in records]}, "
+        f"proc_bg_text {[r['proc_bg_text'] for r in records]}), "
+        f"{len(img_cpu)} canvases, max diff {worst['outside']} LSB outside "
+        f"the inner masks and {worst['inside']} inside (tol 1), 0 on the "
+        f"drawings")
+
+
+class BGSpans:
+    """Times the parts of a BG command on ``session``: the generator's
+    forward in CUDA events, and on the host clock the BG engine's call
+    (upload, forward, fetch), the sky gradient and the PNG writes.  The
+    hooks stay in place until ``close``."""
+
+    def __init__(self, session):
+        import torch
+        from sketchyscenecolorization_torch.pipeline import session as smod
+        self.torch, self.smod, self.comp = torch, smod, smod.comp
+        self.events, self.host = [], {}
+        model = session.bg.model
+
+        def pre(_module, _inputs):
+            self.events.append([torch.cuda.Event(enable_timing=True),
+                                torch.cuda.Event(enable_timing=True)])
+            self.events[-1][0].record()
+
+        def post(_module, _inputs, _outputs):
+            self.events[-1][1].record()
+        self.hooks = [model.register_forward_pre_hook(pre),
+                      model.register_forward_hook(post)]
+        self.saved = {"engine": (session.bg, "colorize"),
+                      "gradient": (self.comp, "add_color_gradient"),
+                      "png": (smod, "write_png")}
+        self.originals = {k: getattr(*v) for k, v in self.saved.items()}
+        for label, (owner, attr) in self.saved.items():
+            setattr(owner, attr, self._timed(label, self.originals[label]))
+
+    def _timed(self, label, fn):
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.host[label] = self.host.get(label, 0.0) + \
+                    time.perf_counter() - t0
+        return timed
+
+    def take(self):
+        """{part: ms} of the commands since the last ``take``."""
+        self.torch.cuda.synchronize()
+        out = {k: v * 1e3 for k, v in self.host.items()}
+        out["generator (device)"] = sum(a.elapsed_time(b)
+                                        for a, b in self.events)
+        self.events, self.host = [], {}
+        return out
+
+    def close(self):
+        for hook in self.hooks:
+            hook.remove()
+        for label, (owner, attr) in self.saved.items():
+            if label == "engine":
+                delattr(owner, attr)        # back to the class's method
+            else:
+                setattr(owner, attr, self.originals[label])
+
+
+# after a FG command with no BG text in the records the first BG text must
+# name both the sky and the ground, as in the reference
+def conv_flop_hooks(model):
+    """Forward hooks on the BG generator's convolutions that add up the
+    operations each call needs (2 per multiply-add) from its shapes:
+    returns ({"conv": ops, "deconv": ops}, the hooks)."""
+    from sketchyscenecolorization_torch.models import bg_gan
+    flops = {"conv": 0.0, "deconv": 0.0}
+
+    def count(module, inputs, out):
+        w = module.filter
+        if isinstance(module, bg_gan.Deconv):    # every input pixel meets
+            x = inputs[0]                        # the whole 4x4 kernel
+            flops["deconv"] += 2.0 * x.shape[0] * x.shape[1] * x.shape[2] \
+                * w.numel()
+        else:
+            flops["conv"] += 2.0 * out.shape[0] * out.shape[1] \
+                * out.shape[2] * w.numel()
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (bg_gan.Conv, bg_gan.ConvEx, bg_gan.Deconv))]
+    return flops, hooks
+
+
+BG_TEXTS = ["the sky is blue and the ground is green", "the ground is brown",
+            "the sky is cyan", "the sky is orange and the ground is yellow",
+            "the ground is green", "the sky is blue"]
+BG_WARM = 12        # warm BG commands timed for the median
+# substrings of cuDNN's and cuBLAS's convolution kernel names
+CONV_KERNEL_WORDS = ("conv", "gemm", "xmma", "wgrad", "dgrad", "fft",
+                     "winograd")
+
+
+def full_width_bg(build_session, card):
+    """The BG branch of ``color`` at the default full-width configuration
+    (ResidualGenerator, ngf 64, multi_residual, 768^2) on the synthetic
+    scene with fresh seeded weights: the sky gradient's 24-bit LUT built
+    and timed apart, a FG command, then the first BG command of the
+    session (cold) and BG_WARM warm ones with their parts timed
+    (``BGSpans``), then the results and the generator's outputs checked.  Returns the launch counts
+    of the BG commands."""
+    import torch
+    from PIL import Image
+    from sketchyscenecolorization_torch.config import (FrameworkConfig,
+                                                       PipelineConfig)
+    from sketchyscenecolorization_torch.pipeline import compositing as comp
+    from sketchyscenecolorization_torch.text import colorization_encode
+    tmp = tempfile.mkdtemp(prefix="smoke_bg_full_")
+    cfg = FrameworkConfig(pipeline=PipelineConfig(
+        data_base_dir=os.path.join(tmp, "examples"),
+        results_base_dir=os.path.join(tmp, "outputs"),
+        match_vocab_path=os.path.join(ROOT, "data", "match_vocab.txt"),
+        fg_vocab_path=os.path.join(ROOT, "data", "fg_vocab.txt"),
+        bg_vocab_path=os.path.join(ROOT, "data", "bg_vocab.txt"),
+        match_ckpt_dir="", fg_ckpt_dir="", bg_ckpt_dir="",
+        device_compositing=False))
+    b = cfg.bg_gan
+    write_scene(os.path.join(tmp, "examples"), cfg.pipeline.image_size)
+
+    comp._rgb_roundtrip_lut()           # wait for a build an earlier
+    comp._ROUNDTRIP_LUT = None          # session started, then time one
+    t0 = time.perf_counter()
+    comp._rgb_roundtrip_lut()
+    lut_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    session = build_session(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in session.bg.model.parameters())
+    log(f"full-width BG: ResidualGenerator ngf {b.ngf}, multi_residual "
+        f"{b.multi_residual}, {b.image_size}^2, {n_params / 1e6:.1f}M "
+        f"parameters; 24-bit sky-gradient LUT built in {lut_s:.3f} s (apart); "
+        f"build_session {build_s:.3f} s")
+    state = session._state(IMAGE_ID)   # fixture decode: set-up, not timed
+    session.colorize(IMAGE_ID, "the bus is yellow")   # a FG result under it
+    spans = BGSpans(session)
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()                                    # path starts
+    t0 = time.perf_counter()
+    session.colorize(IMAGE_ID, BG_TEXTS[0])
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    cold_parts = spans.take()
+    walls, parts = [], []
+    for i in range(BG_WARM):
+        t0 = time.perf_counter()
+        session.colorize(IMAGE_ID, BG_TEXTS[(i + 1) % len(BG_TEXTS)])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        parts.append(spans.take())
+        parts[-1]["rest (host)"] = walls[-1] * 1e3 - sum(
+            parts[-1].get(k, 0.0) for k in ("engine", "gradient", "png"))
+    counts = read_counts()                            # path ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    spans.close()
+    if counts["mlstm_fwd"] != BG_WARM + 1:
+        raise AssertionError(f"{counts['mlstm_fwd']} B1 launches in "
+                             f"{BG_WARM + 1} BG commands, expected one each")
+
+    results = os.path.join(tmp, "outputs", "results", str(IMAGE_ID))
+    with open(os.path.join(tmp, "outputs", "update_records",
+                           f"{IMAGE_ID}_records.json")) as fh:
+        records = json.load(fh)
+    last = records[-1]
+    if len(records) != BG_WARM + 2 or last["colorization_type"] != "BG":
+        raise AssertionError(f"records after the BG run: {records[-3:]}")
+    final = np.array(Image.open(os.path.join(results, last["result_name"])))
+    previous = np.array(Image.open(os.path.join(results,
+                                                records[-2]["result_name"])))
+    inside = state.inner_mask != 0
+    if final.shape != (b.image_size, b.image_size, 3) or \
+            not (final[inside] == previous[inside]).all() or \
+            not (final[state.drawings_region]
+                 == state.moved[state.drawings_region]).all():
+        raise AssertionError("BG result: FG pixels or the drawings changed")
+    if (final[~inside & ~state.drawings_region] == 255).all():
+        raise AssertionError("BG result: the background stayed white")
+    with torch.no_grad():
+        x = torch.rand(1, b.image_size, b.image_size, 3, device="cuda") * 2 - 1
+        tokens = torch.tensor([colorization_encode(BG_TEXTS[0],
+                                                   session.bg.vocab,
+                                                   b.max_len)], device="cuda")
+        flops, hooks = conv_flop_hooks(session.bg.model)
+        (rgb, region), gen_wall, kernels = profile_kernels(
+            lambda: session.bg.model(x, tokens))
+        for hook in hooks:
+            hook.remove()
+    s = b.image_size
+    if rgb.shape != (1, s, s, 3) or region.shape != (1, s, s, b.seg_classes) \
+            or not (torch.isfinite(rgb).all() and torch.isfinite(region).all()):
+        raise AssertionError(f"BG generator outputs {tuple(rgb.shape)}, "
+                             f"{tuple(region.shape)} not finite")
+
+    median = float(np.median(walls))
+    share = {k: float(np.median([p.get(k, 0.0) for p in parts]))
+             for k in parts[0]}
+    log(f"  on {card}: cold first BG command {cold:.3f} s (parts ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in cold_parts.items()) + ")")
+    log(f"  warm BG color on {card}: median {median * 1e3:.1f} ms over "
+        f"{len(walls)} (min {min(walls) * 1e3:.1f}, max "
+        f"{max(walls) * 1e3:.1f}); "
+        f"medians of the parts: "
+        + ", ".join(f"{k} {v:.1f} ms ({v / (median * 1e3):.1%})"
+                    for k, v in share.items())
+        + f"; peak device memory {peak:.2f} GiB; B1 launches "
+          f"{counts['mlstm_fwd']} (one a command, P = 576, H = 1024, T = 8)")
+    total = sum(kernels.values())
+    if total <= 0:
+        raise AssertionError("torch.profiler saw no device time for the BG "
+                             f"generator: {sorted(kernels)[:20]}")
+    convs = sum(v for k, v in kernels.items()
+                if any(w in k.lower() for w in CONV_KERNEL_WORDS))
+    conv_ops = sum(flops.values())
+    conv_bound, _ = bound(conv_ops, 0.0)
+    log(f"  one generator forward under torch.profiler (wall "
+        f"{gen_wall * 1e3:.1f} ms): device kernel time {total:.2f} ms in "
+        f"{len(kernels)} kernel names, convolutions {convs:.2f} ms "
+        f"({convs / total:.1%}) for {conv_ops / 1e9:.1f} GFLOP (conv "
+        f"{flops['conv'] / 1e9:.1f}, transposed {flops['deconv'] / 1e9:.1f}"
+        f"): {conv_ops / convs / 1e9:.1f} TFLOP/s, f32 bound "
+        f"{conv_bound:.2f} ms ({conv_bound / convs:.1%}), B1 "
+        f"{sum(v for k, v in kernels.items() if B1_NAMES[0] in k):.3f} ms; "
+        f"top kernels:")
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {ms:8.3f} ms  {name[:100]}")
+    return counts
 
 
 def full_size_run(build_session, mlstm):
@@ -1019,16 +1322,16 @@ def write_matching_corpus(base: str, size: int, n_images: int = 2):
         json.dump(captions, f)
 
 
-def profile_step(step, state, batch):
-    """One train step under ``torch.profiler``: (state, metrics, wall s,
-    {kernel name: device ms})."""
+def profile_kernels(fn):
+    """``fn()`` under ``torch.profiler``: (its result, wall s, {kernel
+    name: device ms})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, metrics = step(state, batch)
+        result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels = {}
@@ -1038,13 +1341,22 @@ def profile_step(step, state, batch):
         if us > 0 and getattr(ev, "device_type", None) != \
                 torch.autograd.DeviceType.CPU:
             kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
+    return result, wall, kernels
+
+
+def profile_step(step, state, batch):
+    """One train step under ``torch.profiler``: (state, metrics, wall s,
+    {kernel name: device ms})."""
+    (state, metrics), wall, kernels = profile_kernels(
+        lambda: step(state, batch))
     return state, metrics, wall, kernels
 
 
 def full_width_training(mlstm):
     """``cli_matching --mode train`` at the default full-width config on a
     synthetic corpus, then resumed.  Returns ({"mlstm_fwd": launches,
-    "mlstm_bwd": launches}, B2's device ms in the profiled step)."""
+    "mlstm_bwd": launches}, the corpus directory, whose ``run`` holds the
+    snapshots, and the trained module)."""
     import torch
     from sketchyscenecolorization_torch import cli_matching
     from sketchyscenecolorization_torch.config import MatchingConfig
@@ -1064,13 +1376,14 @@ def full_width_training(mlstm):
         f"(frozen), m_rnn {cfg.m_rnn_size}, w_rnn {cfg.w_rnn_size}, T "
         f"{cfg.max_len}, batch 1, synthetic corpus of 2 images x 5 captions")
 
-    records, profiled = [], {}
+    records, profiled, trained = [], {}, {}
     make_step = harness.make_matching_train_step
 
     def instrumented(step_cfg):
         step = make_step(step_cfg)
 
         def timed(state, batch):
+            trained["model"] = state.model
             fwd, bwd = mlstm.mlstm_cuda.launches, mlstm.mlstm_bwd_cuda.launches
             if len(records) + 1 == PROFILED_STEP:
                 state, metrics, wall, kernels = profile_step(step, state,
@@ -1165,7 +1478,80 @@ def full_width_training(mlstm):
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     for name, ms in top:
         log(f"    {ms:8.3f} ms  {name[:100]}")
-    return launches, b2_ms
+    return launches, tmp, trained["model"]
+
+
+def serve_trained(build_session, tmp, trained):
+    """A full-width session built on the training run's snapshots
+    (``match_ckpt_dir``) holds the trained module's weights and gives its
+    ``up`` logits bit for bit on the card."""
+    import torch
+    from sketchyscenecolorization_torch.config import (FrameworkConfig,
+                                                       PipelineConfig)
+    cfg = FrameworkConfig(pipeline=PipelineConfig(
+        data_base_dir=os.path.join(tmp, "examples"),
+        results_base_dir=os.path.join(tmp, "outputs"),
+        match_vocab_path=os.path.join(ROOT, "data", "match_vocab.txt"),
+        fg_vocab_path="", bg_vocab_path="",
+        match_ckpt_dir=os.path.join(tmp, "run", "snapshots"), fg_ckpt_dir="",
+        bg_ckpt_dir="", device_compositing=False))
+    session = build_session(cfg, seed=1, device="cuda")
+    served = session.matching.model
+    want = trained.state_dict()
+    for key, value in served.state_dict().items():
+        if not torch.equal(value, want[key]):
+            raise AssertionError(f"served {key} differs from the trained one")
+    m = cfg.matching
+    rng = np.random.RandomState(5)
+    image = torch.from_numpy((rng.randn(1, m.H, m.W, 3) * 50)
+                             .astype(np.float32)).cuda()
+    words, lens = session.matching.encode_texts(["the bus and the car"])
+    words = torch.from_numpy(words).long().cuda()
+    lens = torch.from_numpy(lens).long().cuda()
+    with torch.no_grad():
+        got = served(image, words, lens).up
+        ref = trained.eval()(image, words, lens).up
+    if not (torch.isfinite(got).all() and torch.equal(got, ref)):
+        raise AssertionError("served up logits differ from the trained "
+                             f"module's: max-abs {float((got - ref).abs().max())}")
+    log(f"session on the training run's snapshots: {len(want)} leaves equal "
+        f"the trained module's, up logits {tuple(got.shape)} bit-equal")
+    del session
+
+
+def infer_matching(tmp):
+    """``cli_matching --mode inference`` on the training run: restores its
+    newest snapshot and writes ``visualize/L0_sample1_pred.png``.  Returns
+    the launch counts of the command."""
+    import shutil
+    import torch
+    from PIL import Image
+    from sketchyscenecolorization_torch import cli_matching
+    val = os.path.join(tmp, "val", "DRAWING_GT")
+    os.makedirs(val, exist_ok=True)
+    shutil.copy(os.path.join(tmp, "train", "DRAWING_GT", "L0_sample1.png"),
+                val)
+    run_dir = os.path.join(tmp, "run")
+    argv = ["--mode", "inference", "--data_base_dir", tmp, "--vocab_path",
+            os.path.join(ROOT, "data", "match_vocab.txt"), "--run_dir",
+            run_dir, "--image_id", "1", "--instruction", "the bus"]
+    reset_counts()                                    # path starts
+    t0 = time.perf_counter()
+    cli_matching.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()                            # path ends
+    pred = np.array(Image.open(os.path.join(run_dir, "visualize",
+                                            "L0_sample1_pred.png")))
+    sketch = np.array(Image.open(os.path.join(val, "L0_sample1.png")))
+    if pred.shape != sketch.shape or counts["mlstm_fwd"] < 1:
+        raise AssertionError(f"inference: prediction {pred.shape}, "
+                             f"{counts['mlstm_fwd']} B1 launches")
+    changed = int((pred[..., 0] != sketch[..., 0]).sum())
+    log(f"cli_matching --mode inference: {wall:.3f} s (model build, "
+        f"restore and one prediction), {changed} pixels marked, launches "
+        f"{counts['mlstm_fwd']} of B1")
+    return counts
 
 
 def variant_session_run(build_session, variant):
@@ -1465,10 +1851,17 @@ def main() -> int:
     log(f"library call: none for B1-B6 ({NO_LIBRARY}; B5/B6 also attend "
         "over the word-LSTM outputs inside the recurrence)")
     check_against_cpu(build_session)
+    check_bg_against_cpu(build_session)
     check_training_against_cpu()
     paths = {"color": full_size_run(build_session, mlstm)}
     torch.cuda.empty_cache()
-    paths["train_matching"], _ = full_width_training(mlstm)
+    paths["color_bg"] = full_width_bg(build_session, smi.splitlines()[0])
+    torch.cuda.empty_cache()
+    paths["train_matching"], corpus, trained = full_width_training(mlstm)
+    serve_trained(build_session, corpus, trained)
+    del trained
+    torch.cuda.empty_cache()
+    paths["infer_matching"] = infer_matching(corpus)
     for variant in VARIANTS:
         torch.cuda.empty_cache()
         check_against_cpu(build_session, variant)

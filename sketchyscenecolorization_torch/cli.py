@@ -4,16 +4,19 @@ reference ``sketchyscene_colorization_main.py``).
 Usage:
     python -m sketchyscenecolorization_torch.cli \
         --command color --image_id 9996 --instruction "the bus is yellow"
+    python -m sketchyscenecolorization_torch.cli \
+        --command color --image_id 9996 --instruction "the sky is blue"
     python -m sketchyscenecolorization_torch.cli --command withdraw --image_id 9996
 
-Models start from fresh parameters (seeded by ``--seed``): restoring
-checkpoints is not ported yet, so an existing checkpoint directory raises.
+The matching model is restored from the newest snapshot of the port's
+trainer under ``--match_ckpt_dir`` when there is one; every other model
+starts from fresh parameters seeded by ``--seed``, and a snapshot under
+``--fg_ckpt_dir`` or ``--bg_ckpt_dir`` raises (``pipeline/factory.py``).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import os
 
 from .config import FrameworkConfig, PipelineConfig
 
@@ -59,10 +62,6 @@ def main(argv=None) -> int:
             "--instructions (colorize_stream) is ROADMAP item A8")
     if not args.instruction:
         raise SystemExit("--instruction is required for the color command")
-    for ckpt in (args.match_ckpt_dir, args.fg_ckpt_dir, args.bg_ckpt_dir):
-        if ckpt and os.path.isdir(ckpt):
-            raise NotImplementedError(
-                f"restoring checkpoints ({ckpt}) is ROADMAP item A9")
 
     from .pipeline.factory import build_session
     cfg = dataclasses.replace(FrameworkConfig(), pipeline=PipelineConfig(

@@ -1,4 +1,4 @@
-"""Layers of the FG generator (``sketchyscenecolorization_tpu/models/gan_layers.py``).
+"""Layers of the FG and BG generators (``sketchyscenecolorization_tpu/models/gan_layers.py``).
 
 NHWC throughout.  Batch-norm uses the current batch's statistics even at
 inference, as the reference does; ``per_sample`` reduces them per row.
@@ -19,7 +19,8 @@ from ..ops.activations import atanh_transform, lrelu, miu_relu
 from ..ops.conv import conv2d
 from ..ops.lstm import lstm_cell
 from ..ops.mlstm import masked_pixel_lstm
-from ..ops.norm import conditional_batch_stats_norm, l2_normalize
+from ..ops.norm import (batch_stats_norm, conditional_batch_stats_norm,
+                        l2_normalize)
 from .rmi import glorot, uniform
 
 
@@ -84,6 +85,22 @@ class CondBatchNorm(nn.Module):
     def forward(self, x, labels, per_sample: bool = False):
         return conditional_batch_stats_norm(x, labels, self.offset,
                                             self.scale, per_sample=per_sample)
+
+
+class BatchStatsNorm(nn.Module):
+    """Unconditional batch-stats BN of the BG generator
+    (``bg_colorization_main.py:86-98``; JAX ``gan_layers.py:136-147``):
+    statistics of the current batch always, no running statistics; offset
+    zeros, scale ~ N(1, 0.02), eps 1e-5."""
+
+    def __init__(self, c: int, generator=None):
+        super().__init__()
+        self.offset = nn.Parameter(torch.zeros(c))
+        self.scale = nn.Parameter(
+            1.0 + 0.02 * torch.randn(c, generator=generator))
+
+    def forward(self, x):
+        return batch_stats_norm(x, self.offset, self.scale)
 
 
 def minmax_normalize(x, eps: float = 1e-12):

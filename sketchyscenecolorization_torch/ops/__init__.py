@@ -1,4 +1,4 @@
-from .conv import conv2d, max_pool_3x3_s2
+from .conv import conv2d, conv2d_transpose, max_pool_3x3_s2, pad1_conv4
 from .norm import (
     frozen_batch_norm, batch_stats_norm, conditional_batch_stats_norm,
     l2_normalize,

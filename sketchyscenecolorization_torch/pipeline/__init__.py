@@ -1,4 +1,5 @@
-from .engines import MatchingEngine, FGColorizeEngine, PIXEL_MU
+from .engines import (BGColorizeEngine, FGColorizeEngine, MatchingEngine,
+                      PIXEL_MU)
 from .session import ColorizationSession
 from .factory import build_session
 from . import compositing

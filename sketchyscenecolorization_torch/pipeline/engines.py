@@ -13,7 +13,7 @@ from typing import Callable, Dict, Sequence
 import numpy as np
 import torch
 
-from ..config import FGGanConfig, MatchingConfig
+from ..config import BGGanConfig, FGGanConfig, MatchingConfig
 from ..models.fg_gan import MRUGenerator
 from ..models.rmi import RMI
 from ..text import colorization_encode, matching_encode
@@ -52,6 +52,31 @@ class MatchingEngine:
             words[i], lens[i] = matching_encode(text, self.vocab,
                                                 self.cfg.max_len)
         return words, lens
+
+    def predict_mask(self, sketch_image_uint8: np.ndarray,
+                     input_text: str) -> np.ndarray:
+        """uint8 [H, W, 3] sketch + one instruction -> {0, 1} float32 mask
+        [H, W], restricted to drawing pixels."""
+        return self.predict_masks(sketch_image_uint8, [input_text])[0]
+
+    @torch.no_grad()
+    def predict_masks(self, sketch_image_uint8: np.ndarray,
+                      input_texts: Sequence[str]) -> np.ndarray:
+        """N instructions against one sketch (JAX ``engines.py:62-86``): the
+        backbone runs once and ``apply_fused`` on all N texts; every layer
+        is independent of the batch row, so row i equals
+        ``predict_mask(sketch, texts[i])``.  Returns host [N, H, W]."""
+        image = (sketch_image_uint8.astype(np.float32) - PIXEL_MU) \
+            .astype(np.float32)
+        visual = self.model.extract_visual(
+            torch.from_numpy(image[None]).to(self.device))
+        words, lens = self.encode_texts(input_texts)
+        up = self.model.apply_fused(
+            visual, torch.from_numpy(words.astype(np.int64)).to(self.device),
+            torch.from_numpy(lens.astype(np.int64)).to(self.device)).up
+        predicts = (up[..., 0].cpu().numpy() >= self.score_thresh) \
+            .astype(np.float32)
+        return predicts * self.binarize_drawing(sketch_image_uint8)[None]
 
     @torch.no_grad()
     def extract_visual_dev(self, image_dev: torch.Tensor) -> torch.Tensor:
@@ -148,3 +173,38 @@ class FGColorizeEngine:
                          padded(noise, np.float32), per_sample=True)
         out_u8 = (((out + 1.0) / 2.0) * 255.0).to(torch.uint8)   # truncates,
         return out_u8[:k].cpu().numpy()                          # as astype
+
+
+class BGColorizeEngine:
+    """BG generator at the canvas size (``bg_utils.py:232-288``; JAX
+    ``engines.py:434-473``): the residual generator with its region branch,
+    or pix2pix (``residual_enc_g=False``), which has none."""
+
+    def __init__(self, cfg: BGGanConfig, model: torch.nn.Module,
+                 vocab: Dict[str, int], device="cuda"):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.model = model.to(self.device).eval()
+        self.vocab = vocab
+
+    @torch.no_grad()
+    def colorize(self, fg_image_uint8: np.ndarray, text: str,
+                 want_region: bool = True):
+        """uint8 [S, S, 3] FG composite -> (uint8 background, uint8 region
+        labels [S, S], or None with ``want_region=False``)."""
+        tokens = colorization_encode(text, self.vocab, self.cfg.max_len)
+        # preprocess_examples (bg main :101-114), in f32 on the host
+        x = fg_image_uint8[None].astype(np.float32) / 255.0 * 2.0 - 1.0
+        result = self.model(
+            torch.from_numpy(x).to(self.device),
+            torch.tensor([tokens], dtype=torch.long, device=self.device))
+        out = result[0] if self.cfg.residual_enc_g else result
+        # deprocess (bg main :29-38): TF's convert_image_dtype scales by
+        # 255.5 and saturates, then the cast truncates
+        out_u8 = ((out + 1.0) / 2.0 * 255.5).clamp(0, 255).to(torch.uint8)
+        labels = None
+        if want_region:
+            labels = (result[1].argmax(dim=-1).to(torch.uint8)[0].cpu().numpy()
+                      if self.cfg.residual_enc_g else
+                      np.zeros(out.shape[1:3], np.uint8))
+        return out_u8[0].cpu().numpy(), labels

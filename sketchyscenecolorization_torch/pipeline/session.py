@@ -1,10 +1,13 @@
-"""Interactive colorization session: the FG instruction pipeline
+"""Interactive colorization session
 (``sketchyscenecolorization_tpu/pipeline/session.py``; reference
 ``sketchyscene_colorization_main.py:16-55``).
 
 color (FG):  route -> RMI matching -> instance indices -> per-instance
              crop/resize/pad -> GAN forward -> un-resize -> paste via the
              inner mask -> drawing overlay -> save + record.
+color (BG):  route -> merge the sky/ground text with the image's history ->
+             extract the FG -> BG generator at the canvas size -> paste the
+             FG back -> drawing overlay -> HSV sky gradient -> save + record.
 withdraw:    delete the newest result image and truncate the record JSON.
 
 What depends only on an image's fixtures is computed once and cached per
@@ -14,9 +17,9 @@ optionally, the backbone features.  Matching scores are cached per
 instruction text.  Compositing runs on the host in NumPy/PIL (the JAX
 session's ``device_compositing=False`` chain, ``session.py:813-826``).
 
-Not ported yet: BG instructions (ROADMAP A7), device compositing, compact
-fetch, ``colorize_stream`` and write-behind PNGs (A8).  Asking for any of
-them raises ``NotImplementedError``.
+Not ported yet: device compositing (with the BG device gradient), compact
+fetch, ``colorize_stream`` and write-behind PNGs (ROADMAP A8).  Asking for
+any of them raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,8 +37,10 @@ from ..data.fixtures import (
 )
 from ..data.records import fetch_records, update_records, withdraw_records
 from ..text import judge_colorize_type, segment_user_input_text
+from ..text.bg_text import DEFAULT_BG_TEXT, combine_bg_input_text
 from . import compositing as comp
-from .engines import PIXEL_MU, FGColorizeEngine, MatchingEngine
+from .engines import (PIXEL_MU, BGColorizeEngine, FGColorizeEngine,
+                      MatchingEngine)
 from .io import write_png
 
 
@@ -129,16 +134,22 @@ class _ImageState:
 
 
 class ColorizationSession:
-    """Holds the matching and FG engines plus per-image cached state."""
+    """Holds the three engines plus per-image cached state."""
 
     def __init__(self, cfg: FrameworkConfig, matching: MatchingEngine,
-                 fg: FGColorizeEngine):
+                 fg: FGColorizeEngine, bg: BGColorizeEngine):
         _check_supported(cfg)
         self.cfg = cfg
         self.matching = matching
         self.fg = fg
+        self.bg = bg
         self.device = matching.device
         self._images: "OrderedDict[str, _ImageState]" = OrderedDict()
+        if (cfg.pipeline.color_gradient
+                and cfg.pipeline.image_size ** 2 // 2 >= comp._LUT_MIN_PIXELS):
+            # the sky gradient runs at LUT scale: build the 24-bit
+            # round-trip table now, off the first BG command
+            comp.prewarm_roundtrip_lut()
 
     # ---------------------------------------------------------------- paths
     def _paths(self, image_id) -> Dict[str, str]:
@@ -190,16 +201,19 @@ class ColorizationSession:
         """One 'color' command; returns the path of the new result image."""
         if not input_text:
             raise ValueError("empty instruction")
-        if judge_colorize_type(input_text) != "FG":
-            raise NotImplementedError(
-                "background instructions are not ported yet (ROADMAP A7)")
+        colorization_type = judge_colorize_type(input_text)
         new_name, last_name, last_bg_text, summary = fetch_records(
             image_id, self.cfg.pipeline.results_base_dir)
-        inst_indices = self.match_instances(image_id, input_text)
-        out_path = self.colorize_foreground(
-            image_id, input_text, inst_indices, new_name, last_name)
+        if colorization_type == "FG":
+            inst_indices = self.match_instances(image_id, input_text)
+            out_path = self.colorize_foreground(
+                image_id, input_text, inst_indices, new_name, last_name)
+            proc_bg_text = last_bg_text
+        else:
+            out_path, proc_bg_text = self.colorize_background(
+                image_id, input_text, new_name, last_name, last_bg_text)
         update_records(image_id, input_text, self.cfg.pipeline.results_base_dir,
-                       "FG", new_name, last_bg_text, summary)
+                       colorization_type, new_name, proc_bg_text, summary)
         return out_path
 
     def withdraw(self, image_id) -> None:
@@ -298,3 +312,44 @@ class ColorizationSession:
         write_png(out_path, new_result, self.cfg.pipeline.png_compress_level)
         state.last_result = (new_name, new_result)
         return out_path
+
+    # ------------------------------------------------------------------ BG
+    def colorize_background(self, image_id, input_text: str, new_name: str,
+                            last_name: str, last_bg_text: str
+                            ) -> Tuple[str, str]:
+        """``build_background_colorization`` (``bg_utils.py:169-325``; JAX
+        ``session.py:837-917`` with ``device_compositing=False``).  Returns
+        (result path, the merged BG text the record keeps)."""
+        state = self._state(image_id)
+        results_dir = self._results_dir(image_id)
+        if last_name == "":
+            if last_bg_text != "":
+                raise ValueError(f"records of image {image_id} hold a BG "
+                                 "text but no result")
+            last_bg_text = DEFAULT_BG_TEXT
+        proc_text = combine_bg_input_text(input_text, last_bg_text)
+
+        previous = self._load_base(state, results_dir, last_name)
+        inner_mask, moved = state.inner_mask, state.moved
+        drawings_region = state.drawings_region
+        fg_image = comp.extract_foreground(previous, inner_mask)
+        background, _ = self.bg.colorize(fg_image, proc_text,
+                                         want_region=False)
+        # paste the FG back, overlay the drawings (``bg_utils.py:290-310``)
+        background[inner_mask != 0] = fg_image[inner_mask != 0]
+        background[drawings_region] = moved[drawings_region]
+
+        # the FG image with the overlay, saved as the reference does
+        fg_image[drawings_region] = moved[drawings_region]
+        level = self.cfg.pipeline.png_compress_level
+        write_png(os.path.join(results_dir, f"{image_id}_fg.png"), fg_image,
+                  level)
+
+        if self.cfg.pipeline.color_gradient:
+            background = comp.add_color_gradient(background, inner_mask)
+            background[drawings_region] = moved[drawings_region]
+
+        out_path = os.path.join(results_dir, new_name)
+        write_png(out_path, background, level)
+        state.last_result = (new_name, background)
+        return out_path, proc_text

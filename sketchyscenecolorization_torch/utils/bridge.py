@@ -3,9 +3,13 @@ modules.
 
 The port's modules name their submodules and parameters after the JAX
 trees' keys: the functional dicts of ``models/deeplab.py`` and
-``models/rmi.py:84-127``, and the flax ``params`` tree of ``MRUGenerator``.
-A leaf at ``a/b/c`` in a tree is the entry ``a.b.c`` of the module's
-``state_dict``.  Every 4-D leaf is a conv kernel: HWIO in JAX, OIHW here.
+``models/rmi.py:84-127``, and the flax ``params`` trees of ``MRUGenerator``
+and the BG generators.  A leaf at ``a/b/c`` in a tree is the entry
+``a.b.c`` of the module's ``state_dict``.  Every 4-D leaf is a conv kernel,
+HWIO in JAX.  Here it is OIHW, unless the module that owns it names
+another layout in a ``FROM_HWIO`` attribute (the transposed conv's
+``[in, out, kh, kw]``).  The owner decides, not the shape: a transposed
+conv with as many inputs as outputs has the same shape either way.
 
 Trees arrive as nested mappings of NumPy arrays (``jax.tree.map(np.asarray,
 tree)`` on the JAX side), so this module needs no jax.
@@ -20,7 +24,6 @@ import torch
 from torch import nn
 
 _HWIO_TO_OIHW = (3, 2, 0, 1)
-_OIHW_TO_HWIO = (2, 3, 1, 0)
 
 
 def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
@@ -33,6 +36,12 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
         else:
             flat[path] = value
     return flat
+
+
+def _from_hwio(module: nn.Module, key: str):
+    """The permutation from a JAX kernel to the 4-D leaf ``key``."""
+    owner = module.get_submodule(key.rpartition(".")[0])
+    return getattr(owner, "FROM_HWIO", _HWIO_TO_OIHW)
 
 
 def load_jax_tree(module: nn.Module, tree: Mapping) -> nn.Module:
@@ -51,7 +60,7 @@ def load_jax_tree(module: nn.Module, tree: Mapping) -> nn.Module:
     for path, key in want.items():
         arr = np.asarray(flat[path], dtype=np.float32)
         if arr.ndim == 4:
-            arr = arr.transpose(_HWIO_TO_OIHW)
+            arr = arr.transpose(_from_hwio(module, key))
         if tuple(arr.shape) != tuple(state[key].shape):
             raise ValueError(f"{path}: shape {arr.shape} (after layout "
                              f"change) != {tuple(state[key].shape)}")
@@ -67,7 +76,7 @@ def export_jax_tree(module: nn.Module) -> Dict[str, Any]:
     for key, value in module.state_dict().items():
         arr = value.detach().cpu().numpy()
         if arr.ndim == 4:
-            arr = arr.transpose(_OIHW_TO_HWIO)
+            arr = arr.transpose(np.argsort(_from_hwio(module, key)))
         *parents, leaf = key.split(".")
         node = tree
         for p in parents:

@@ -1,9 +1,10 @@
 """The port imports nothing of the JAX package: with ``jax`` and
-``sketchyscenecolorization_tpu`` both blocked it imports (the CLIs and the
-RecurAttn op included), builds a small session, takes one matching train
-step and runs the word-attention and RecurAttn fusions once.  Its
-own copies of the JAX package's jax-free modules (``config``, ``text``,
-``data``) agree with the originals."""
+``sketchyscenecolorization_tpu`` both blocked it imports (the CLIs, the
+RecurAttn op, the BG generator and the visualization copy included),
+builds a small session and runs one BG command on the synthetic fixtures,
+takes one matching train step and runs the word-attention and RecurAttn
+fusions once.  Its own copies of the JAX package's jax-free modules
+(``config``, ``text``, ``data``) agree with the originals."""
 import dataclasses
 import os
 import subprocess
@@ -18,6 +19,7 @@ from sketchyscenecolorization_tpu import text as jtext
 from sketchyscenecolorization_torch import config as tconfig
 from sketchyscenecolorization_torch import data as tdata
 from sketchyscenecolorization_torch import text as ttext
+from test_pipeline import write_fixtures
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -29,9 +31,12 @@ SCRIPT = textwrap.dedent("""
     import torch
     import sketchyscenecolorization_torch.cli
     import sketchyscenecolorization_torch.cli_matching
+    import sketchyscenecolorization_torch.models.bg_gan
     import sketchyscenecolorization_torch.ops.recur_attn
+    import sketchyscenecolorization_torch.utils.visualization
     from sketchyscenecolorization_torch.config import (
-        FGGanConfig, FrameworkConfig, MatchingConfig, PipelineConfig)
+        BGGanConfig, FGGanConfig, FrameworkConfig, MatchingConfig,
+        PipelineConfig)
     from sketchyscenecolorization_torch.models.rmi import RMI
     from sketchyscenecolorization_torch.pipeline import build_session
     from sketchyscenecolorization_torch.train import (
@@ -39,12 +44,24 @@ SCRIPT = textwrap.dedent("""
     matching = MatchingConfig(vf_h=4, vf_w=4, H=32, W=32, vocab_size=16,
                               w_emb_dim=8, v_emb_dim=8, m_rnn_size=8,
                               w_rnn_size=8, max_len=6)
+    base = sys.argv[1]
     cfg = FrameworkConfig(
-        matching=matching,
-        fg_gan=FGGanConfig(image_size=32, vocab_size=16, max_len=6,
+        matching=MatchingConfig(vf_h=8, vf_w=8, H=64, W=64, vocab_size=16,
+                                w_emb_dim=8, v_emb_dim=8, m_rnn_size=8,
+                                w_rnn_size=8, max_len=6),
+        fg_gan=FGGanConfig(image_size=64, vocab_size=16, max_len=6,
                            base_channels=4, noise_dim=8),
-        pipeline=PipelineConfig(device_compositing=False))
+        bg_gan=BGGanConfig(image_size=64, vocab_size=16, ngf=4,
+                           multi_residual=False),
+        pipeline=PipelineConfig(
+            data_base_dir=base + "/examples",
+            results_base_dir=base + "/outputs", match_vocab_path="",
+            fg_vocab_path="", bg_vocab_path="", match_ckpt_dir="",
+            fg_ckpt_dir="", bg_ckpt_dir="", image_size=64, instance_size=64,
+            device_compositing=False))
     session = build_session(cfg, seed=0, device="cpu")
+    out = session.colorize(7, "the sky is blue")
+    assert out.endswith("7_1.png"), out
     state = create_matching_state(RMI(matching), matching)
     rng = np.random.RandomState(0)
     batch = {
@@ -69,10 +86,12 @@ SCRIPT = textwrap.dedent("""
 """)
 
 
-def test_port_imports_and_builds_without_jax():
+def test_port_imports_and_builds_without_jax(tmp_path):
+    write_fixtures(str(tmp_path / "examples"))
     env = dict(os.environ, PYTHONPATH=ROOT)
-    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = subprocess.run([sys.executable, "-c", SCRIPT, str(tmp_path)],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok ColorizationSession"
 
@@ -127,10 +146,10 @@ def test_entry_points_default_to_the_card():
 
     from sketchyscenecolorization_torch import cli, cli_matching
     from sketchyscenecolorization_torch.pipeline import (
-        FGColorizeEngine, MatchingEngine, build_session)
+        BGColorizeEngine, FGColorizeEngine, MatchingEngine, build_session)
     from sketchyscenecolorization_torch.train import train_matching
     for fn in (build_session, MatchingEngine, FGColorizeEngine,
-               train_matching):
+               BGColorizeEngine, train_matching):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     for mod in (cli, cli_matching):
         assert mod.make_parser().get_default("device") == "cuda"

@@ -1,16 +1,25 @@
-"""Port parity of the interactive FG session on the synthetic fixtures of
+"""Port parity of the interactive session on the synthetic fixtures of
 ``tests/test_pipeline.py`` (``write_fixtures`` + ``small_config``): the JAX
 session (host compositing, ``device_compositing=False``) and the torch
 session get the same weights through the bridge and the same noise stream
 (the JAX engine's key chain fed through ``FGColorizeEngine.noise_source``),
 then run the same instruction sequence.
 
-Expected: byte-identical records JSON, equal matched-instance sets (scores
-within 1e-9), result canvases within 1 uint8 LSB (generator outputs are f32
-in another summation order before the u8 truncation; measured max
-0 LSB) and byte-equal outside the instances' inner masks; withdraw
-agrees, through the session and through the CLI."""
+FG sequence: byte-identical records JSON, equal matched-instance sets
+(scores within 1e-9), result canvases within 1 uint8 LSB (generator outputs
+are f32 in another summation order before the u8 truncation; measured max
+0 LSB) and byte-equal outside the instances' inner masks; withdraw agrees,
+through the session and through the CLI.
+
+Mixed FG/BG sequence, sky gradient off: byte-identical records JSON (the
+merged ``proc_bg_text`` included), canvases within 1 LSB (the BG generator
+writes every pixel outside the inner masks; measured max 1 LSB) and
+byte-equal inside the inner masks and on the drawings.  With the gradient
+on, the port's host chain fed the JAX engine's background bytes gives
+byte-identical canvases: the gradient's sky-colour vote could move on a
+1-LSB difference of the generator, so it is held apart from it."""
 import dataclasses
+import json
 import os
 
 import jax
@@ -25,7 +34,9 @@ from sketchyscenecolorization_torch import cli
 from sketchyscenecolorization_torch import config as tconfig
 from sketchyscenecolorization_torch.pipeline.factory import build_session
 from sketchyscenecolorization_torch.pipeline.session import \
-    ColorizationSession
+    ColorizationSession as TColorizationSession
+from sketchyscenecolorization_tpu.pipeline.session import \
+    ColorizationSession as JColorizationSession
 from sketchyscenecolorization_torch.utils.bridge import load_jax_tree
 from test_pipeline import small_config, write_fixtures
 
@@ -79,17 +90,18 @@ def sessions(tmp_path_factory):
     load_jax_tree(ts.matching.model, jax.tree.map(np.asarray,
                                                    js.matching.params))
     load_jax_tree(ts.fg.model, jax.tree.map(np.asarray, js.fg.g_params))
+    load_jax_tree(ts.bg.model, jax.tree.map(np.asarray, js.bg.g_params))
     ts.fg.noise_source = JaxNoise(0, tcfg.fg_gan.noise_dim)
     return (js, jdir), (ts, tdir)
 
 
-def _records(base):
-    path = base / "outputs" / "update_records" / f"{IMAGE_ID}_records.json"
+def _records(base, outputs="outputs"):
+    path = base / outputs / "update_records" / f"{IMAGE_ID}_records.json"
     return path.read_bytes() if path.exists() else None
 
 
-def _results(base):
-    d = base / "outputs" / "results" / str(IMAGE_ID)
+def _results(base, outputs="outputs"):
+    d = base / outputs / "results" / str(IMAGE_ID)
     return {n: np.array(Image.open(d / n).convert("RGB"))
             for n in sorted(os.listdir(d))}
 
@@ -143,12 +155,85 @@ def test_unported_pipeline_options_raise(sessions):
     _, (ts, tdir) = sessions
     cfg = port_config(small_config(tdir))  # device_compositing=True
     with pytest.raises(NotImplementedError, match="device_compositing"):
-        ColorizationSession(cfg, ts.matching, ts.fg)
+        TColorizationSession(cfg, ts.matching, ts.fg, ts.bg)
 
 
-def test_background_instruction_raises(sessions):
-    _, (ts, tdir) = sessions
-    before = _records(tdir)
-    with pytest.raises(NotImplementedError, match="A7"):
-        ts.colorize(IMAGE_ID, "the sky is blue")
-    assert _records(tdir) == before
+def _outputs_config(cfg, outputs, color_gradient):
+    """``cfg`` writing to ``<tmp>/<outputs>`` with the gradient on or off."""
+    base = os.path.dirname(cfg.pipeline.results_base_dir)
+    return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, results_base_dir=os.path.join(base, outputs),
+        color_gradient=color_gradient))
+
+
+def _rebind(sessions, outputs, color_gradient, bg=None):
+    """Both sessions' engines under a new results dir and gradient setting;
+    ``bg`` replaces the port's BG engine."""
+    (js, jdir), (ts, tdir) = sessions
+    return (JColorizationSession(
+                _outputs_config(js.cfg, outputs, color_gradient),
+                js.matching, js.fg, js.bg),
+            TColorizationSession(
+                _outputs_config(ts.cfg, outputs, color_gradient),
+                ts.matching, ts.fg, bg or ts.bg))
+
+
+def test_mixed_fg_bg_sequence_matches_jax(sessions):
+    (_, jdir), (_, tdir) = sessions
+    js, ts = _rebind(sessions, "mixed", color_gradient=False)
+    state = ts._state(IMAGE_ID)
+    inside = state.inner_mask != 0
+
+    def check():
+        assert _records(tdir, "mixed") == _records(jdir, "mixed")
+        want, got = _results(jdir, "mixed"), _results(tdir, "mixed")
+        assert sorted(got) == sorted(want)
+        for name in want:
+            diff = np.abs(got[name].astype(int) - want[name].astype(int))
+            assert diff.max() <= 1, name
+            assert not diff[inside].any(), name
+            assert not diff[state.drawings_region].any(), name
+
+    sequence = ["the sky is blue", "the bus is yellow", "the ground is green",
+                None, "the sky is red and the ground is brown"]
+    for text in sequence:
+        for s in (js, ts):
+            if text is None:
+                s.withdraw(IMAGE_ID)
+            else:
+                s.colorize(IMAGE_ID, text)
+        check()
+    records = json.loads(_records(tdir, "mixed"))
+    assert [r["colorization_type"] for r in records] == ["BG", "FG", "BG"]
+    assert records[1]["proc_bg_text"] == records[0]["proc_bg_text"]
+    assert records[2]["proc_bg_text"] == \
+        "the sky is red and the ground is brown"
+
+
+class _JaxBackground:
+    """The JAX BG engine behind the port's ``BGColorizeEngine.colorize``."""
+
+    def __init__(self, engine):
+        self.engine = engine
+
+    def colorize(self, fg_image_uint8, text, want_region=True):
+        out, region = self.engine.colorize(fg_image_uint8, text, want_region)
+        return np.array(out), region
+
+
+def test_sky_gradient_chain_matches_jax_given_equal_background(sessions):
+    (js, jdir), (_, tdir) = sessions
+    js, ts = _rebind(sessions, "gradient", color_gradient=True,
+                     bg=_JaxBackground(js.bg))
+    for text in ("the sky is blue", "the ground is green", None,
+                 "the sky is cyan and the ground is brown"):
+        for s in (js, ts):
+            if text is None:
+                s.withdraw(IMAGE_ID)
+            else:
+                s.colorize(IMAGE_ID, text)
+        assert _records(tdir, "gradient") == _records(jdir, "gradient")
+        want, got = _results(jdir, "gradient"), _results(tdir, "gradient")
+        assert sorted(got) == sorted(want)
+        for name in want:
+            np.testing.assert_array_equal(got[name], want[name], name)

@@ -248,7 +248,6 @@ def test_cli_matching_trains_two_steps(tmp_path, monkeypatch):
     assert cli_matching.main(args + ["--max_iteration", "2"]) == 0
     assert latest_checkpoint(str(tmp_path / "run" / "snapshots"))[0] == 2
     assert md.IMAGE_SIZE == 48
-    for mode, item in (("eval", "A11"), ("inference", "A8")):
-        with pytest.raises(NotImplementedError, match=item):
-            cli_matching.main(["--mode", mode, "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A11"):
+        cli_matching.main(["--mode", "eval", "--device", "cpu"])
     assert cli_matching.make_parser().parse_args([]).device == "cuda"
