@@ -12,8 +12,8 @@ and prints no result):
      ``csrc/recur_attn_bwd.cu`` (B6), which share the tensor-core kernels of
      ``csrc/lstm_tc.cuh`` and ``csrc/recur_tc.cuh``;
   2. turn TF32 off for cuDNN convolutions and cuBLAS matmuls;
-  3. hold B1 against ``mlstm_plain`` on the card at the RMI, FG and BG
-     shapes, at H = 250 (not a multiple of 4) and at the FG shape with a
+  3. hold B1 against ``mlstm_plain`` on the card at the RMI, FG (serving,
+     N = 4, and GAN training, N = 2) and BG shapes, at H = 250 (not a multiple of 4) and at the FG shape with a
      row without a kept step (max-abs error on h <= 1e-4) and time both;
      profile one B1 call at the RMI shape by launch kind;
   4. hold B2 against ``mlstm_bwd_plain`` at the same shapes but the last
@@ -94,7 +94,22 @@ and prints no result):
      5 ``train_matching`` steps on the synthetic corpus, each launching
      B3+B4 or B5+B6, with step walls, peak device memory and the last step
      under ``torch.profiler``;
- 11. print the kernels line (six kernels: launches per path, times, the
+ 11. GAN training: three FG and three BG train steps at small configs on
+     CUDA and on the CPU, each from the same state, batches and draws
+     (losses, EMAs, committed spectral-norm vectors and updated parameters
+     agree; B1 twice and B2 once a CUDA step); then ``cli_fg_gan --mode
+     train`` at the default ``FGGanConfig`` (192^2, batch 2, base 64) on a
+     synthetic 384^2 record shard for 6 steps, resumed to 8 (path
+     ``train_fg_gan``), and ``cli_bg_gan --mode train`` at the default
+     ``BGGanConfig`` (768^2, ngf/ndf 64, ``multi_residual``) on synthetic
+     captions and images for 4 steps, resumed to 6 (path
+     ``train_bg_gan``): step walls, one profiled step each (device ms,
+     idle share, convolutions, B1 and B2), peak memory, B1/B2 launches by
+     shape; then a full-width session on both runs' snapshots (path
+     ``serve_gans``: its generators equal the snapshots', a routed FG and a
+     BG command), ``cli_fg_gan --mode val`` and ``cli_bg_gan --mode test``
+     on one entry each;
+ 12. print the kernels line (six kernels: launches per path, times, the
      f32 and 3xTF32 bounds, device ms by launch kind, HMMA counts),
      the card's name and power limit, and last ``{"ok": true, "device":
      {...}}``.
@@ -131,6 +146,7 @@ SHAPES = [
     # front-padded
     ("rmi", 1, 9216, 500, 15, 7, False),
     ("fg", 4, 36, 512, 15, 4, True),
+    ("fg_train", 2, 36, 512, 15, [6, 11], True),     # FG GAN training
     ("bg", 1, 576, 1024, 8, 5, True),
     ("h250", 2, 1001, 250, 15, 7, False),            # cli_matching scale 0.5
     ("fg_empty_row", 4, 36, 512, 15, [4, 4, 0, 4], True),   # B1 only
@@ -1272,21 +1288,28 @@ def routed(session, routes=SMALL_ROUTES, match=False):
 
 @contextlib.contextmanager
 def b1_shapes():
-    """Yields a Counter of B1's launches by (N, P, H) while the block
-    runs, read from the inputs its wrapper hands to the launch (the
-    wrapper's own count is untouched)."""
+    """Yields a Counter of B1's launches by (N, P, H) and of B2's by
+    ("B2", N, P, H) while the block runs, read from the inputs the
+    wrappers hand to the launch (the wrappers' own counts are
+    untouched)."""
     from sketchyscenecolorization_torch.ops import mlstm
-    tally, fwd = collections.Counter(), mlstm._fwd_cuda
+    tally, fwd, bwd = collections.Counter(), mlstm._fwd_cuda, mlstm._bwd_cuda
 
     def spy(name, pixel_term, step_term, w_h, valid, attn=None):
         if name == "mlstm_cuda":
             tally[tuple(pixel_term.shape[:2]) + (w_h.shape[0],)] += 1
         return fwd(name, pixel_term, step_term, w_h, valid, attn)
-    mlstm._fwd_cuda = spy
+
+    def spy_bwd(pixel_term, step_term, w_h, valid, g, attn=None):
+        if attn is None:
+            tally[("B2",) + tuple(pixel_term.shape[:2]) + (w_h.shape[0],)] \
+                += 1
+        return bwd(pixel_term, step_term, w_h, valid, g, attn)
+    mlstm._fwd_cuda, mlstm._bwd_cuda = spy, spy_bwd
     try:
         yield tally
     finally:
-        mlstm._fwd_cuda = fwd
+        mlstm._fwd_cuda, mlstm._bwd_cuda = fwd, bwd
 
 
 def text_fusion_hidden(model):
@@ -2365,6 +2388,438 @@ def variant_training(variant):
     return counts
 
 
+# ------------------------------------------------------------ GAN training
+
+GAN_SMALL_STEPS = 3           # CUDA-vs-CPU steps of each GAN
+GAN_RUNS = {"fg": (6, 2), "bg": (4, 2)}   # full-width steps, then resumed
+GAN_PROFILED_STEP = 4         # a warm step of each run, under the profiler
+GAN_LOSS_RTOL, GAN_SN_ATOL = 1e-4, 1e-5
+GAN_CLEAR_MU, GAN_UPDATE_ATOL, GAN_ADAM_BOUND = 1e-5, 1e-2, 4.0
+GAN_TEXT = "the sky is blue and the ground is green"
+
+
+def small_gan_batches(rng, fg, bg):
+    """One FG step's (D, G) batches and one BG step's batch, seeded."""
+    def fg_batch():
+        s, b = fg.image_size, fg.batch_size
+        return {"images": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+                "sketches": rng.uniform(-1, 1, (b, s, s, 3))
+                .astype(np.float32),
+                "images_d": rng.uniform(-1, 1, (b, s, s, 3))
+                .astype(np.float32),
+                "class_id": rng.randint(0, fg.num_classes, b),
+                "class_id_d": rng.randint(0, fg.num_classes, b),
+                "tokens": np.concatenate([np.zeros((b, 1), np.int64),
+                                          rng.randint(1, fg.vocab_size,
+                                                      (b, fg.max_len - 1))],
+                                         1)}
+    s, b = bg.image_size, bg.batch_size
+    tokens = rng.randint(1, bg.vocab_size, (b, bg.max_len))
+    tokens[0, :2] = 0
+    return (fg_batch(), fg_batch()), ({
+        "inputs": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+        "targets": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+        "tokens": tokens, "labels": rng.randint(0, 3, (b, s, s))},)
+
+
+def check_gan_training_against_cpu():
+    """Three FG and three BG train steps at small configs (64^2, base 4,
+    batch 2) on CUDA and on the CPU, with the same batches and draws (the
+    steps draw on the host).  Each step starts both from the CPU run's
+    state: Adam's first updates move every element by about +-lr, the
+    ones whose gradient is at rounding level either way, so free-running
+    runs part by ~1% of some weights.  Losses and EMAs agree within
+    GAN_LOSS_RTOL, the committed spectral-norm vectors within GAN_SN_ATOL,
+    an element whose Adam moment is at least GAN_CLEAR_MU on both within
+    GAN_UPDATE_ATOL lr and every element within GAN_ADAM_BOUND lr; B1
+    twice and B2 once a step on CUDA (the fakes of the D update, the G
+    update's forward and its backward), never on the CPU."""
+    import torch
+    from sketchyscenecolorization_torch.config import (BGGanConfig,
+                                                       FGGanConfig)
+    from sketchyscenecolorization_torch.parallel import to_device
+    from sketchyscenecolorization_torch.train import (
+        create_bg_gan_state, create_fg_gan_state, make_bg_gan_train_step,
+        make_fg_gan_train_step)
+    fg = FGGanConfig(batch_size=2, image_size=64, vocab_size=10, max_len=4,
+                     base_channels=4, noise_dim=8, max_iters=100)
+    bg = BGGanConfig(batch_size=2, image_size=64, vocab_size=8, max_len=4,
+                     ngf=4, ndf=4, multi_residual=False, max_steps=100)
+    rng = np.random.RandomState(0)
+    batches = [small_gan_batches(rng, fg, bg) for _ in range(GAN_SMALL_STEPS)]
+    for kind, cfg, create, make, lr in (
+            ("FG", fg, create_fg_gan_state, make_fg_gan_train_step,
+             {"generator": fg.lr_g, "discriminator": fg.lr_d}),
+            ("BG", bg, create_bg_gan_state, make_bg_gan_train_step,
+             {"generator": bg.lr, "discriminator": bg.lr})):
+        cpu, gpu = create(cfg, device="cpu"), create(cfg, device="cuda")
+        step_cpu, step_gpu = make(cfg), make(cfg)
+        loss_err = sn_err = update_err = adam = 0.0
+        losses = []
+        for i, (fg_args, bg_args) in enumerate(batches):
+            args = fg_args if kind == "FG" else bg_args
+            gpu.load_state_dict(cpu.state_dict())
+            reset_counts()
+            gpu, m_gpu = step_gpu(gpu, *(to_device(b, "cuda") for b in args))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            cpu, m_cpu = step_cpu(cpu,
+                                  *(to_device(b, "cpu") for b in args))
+            if read_counts() != counts or counts["mlstm_fwd"] != 2 or \
+                    counts["mlstm_bwd"] != 1:
+                raise AssertionError(f"{kind} step {i + 1}: launches {counts}"
+                                     f" on CUDA, {read_counts()} after the "
+                                     "CPU step; expected B1 2, B2 1, CPU 0")
+            for key, want in m_cpu.items():
+                if key == "nan":
+                    if bool(want) or bool(m_gpu[key]):
+                        raise AssertionError(f"{kind} step {i + 1}: NaN")
+                    continue
+                err = abs(float(m_gpu[key]) / float(want) - 1)
+                if not err <= GAN_LOSS_RTOL:
+                    raise AssertionError(f"{kind} step {i + 1} {key}: CUDA "
+                                         f"{float(m_gpu[key])} vs CPU "
+                                         f"{float(want)}")
+                loss_err = max(loss_err, err)
+            losses.append(float(m_cpu["loss_g" if kind == "FG"
+                                      else "gen_loss"]))
+            for want, got in zip(cpu.discriminator.buffers(),
+                                 gpu.discriminator.buffers()):
+                sn_err = max(sn_err, float((got.cpu() - want).abs().max()))
+            if sn_err > GAN_SN_ATOL:
+                raise AssertionError(f"{kind} step {i + 1}: committed u "
+                                     f"differ by {sn_err}")
+            for side, opt_c, opt_g in (
+                    ("generator", cpu.g_opt, gpu.g_opt),
+                    ("discriminator", cpu.d_opt, gpu.d_opt)):
+                want = dict(getattr(cpu, side).named_parameters())
+                got = dict(getattr(gpu, side).named_parameters())
+                for name, w in want.items():
+                    diff = (got[name].detach().cpu() - w.detach()).abs() \
+                        / lr[side]
+                    clear = (opt_c.mu[name].abs() >= GAN_CLEAR_MU) & \
+                        (opt_g.mu[name].cpu().abs() >= GAN_CLEAR_MU)
+                    adam = max(adam, float(diff.max()))
+                    if clear.any():
+                        update_err = max(update_err, float(diff[clear].max()))
+                    if update_err > GAN_UPDATE_ATOL or adam > GAN_ADAM_BOUND:
+                        raise AssertionError(
+                            f"{kind} step {i + 1} {side}.{name}: CUDA vs CPU "
+                            f"{update_err} lr on clear elements, {adam} lr "
+                            "on any")
+        log(f"small-config {kind} GAN training, {GAN_SMALL_STEPS} steps from "
+            f"the same states, CUDA vs CPU: G losses "
+            f"{[f'{x:.4f}' for x in losses]}, losses and EMAs max relative "
+            f"difference {loss_err:.2e} (tol {GAN_LOSS_RTOL:.0e}); committed "
+            f"u max-abs {sn_err:.2e} (tol {GAN_SN_ATOL:.0e}); parameters "
+            f"{update_err:.2e} lr where the moment >= {GAN_CLEAR_MU:.0e} "
+            f"(tol {GAN_UPDATE_ATOL:.0e}), {adam:.2f} lr at most (Adam bound "
+            f"{GAN_ADAM_BOUND}); B1 2 and B2 1 launches a CUDA step")
+
+
+def write_fg_gan_data(base, n=4, text_len=15):
+    """records/train/bus.npz (``n`` synthetic 384^2 pairs) and
+    records/val/bus.npz (one), written with the port's
+    ``write_record_shard``."""
+    from sketchyscenecolorization_torch.data import write_record_shard
+    rng = np.random.RandomState(3)
+    for split, k in (("train", n), ("val", 1)):
+        cartoons = rng.randint(0, 256, (k, 384, 384, 3)).astype(np.uint8)
+        sketches = np.full((k, 384, 384, 3), 255, np.uint8)
+        sketches[:, 64:320:9, 40:340] = 0
+        sketches[:, 40:340, 64:320:11] = 0
+        tokens = rng.randint(1, 58, (k, text_len)).astype(np.uint8)
+        tokens[:, :text_len // 2] = 0
+        write_record_shard(os.path.join(base, "records", split, "bus.npz"),
+                           [f"bus{i}.png" for i in range(k)], cartoons,
+                           sketches, "bus", np.full(k, 7), ["red"] * k,
+                           tokens)
+
+
+def write_bg_gan_data(base, size, n=2):
+    """captions/{train,test}.json and their foreground, background and
+    segment PNGs (``n`` train entries, one test entry) at ``size``^2."""
+    from PIL import Image
+    rng = np.random.RandomState(4)
+    for split, k in (("train", n), ("test", 1)):
+        entries = []
+        for i in range(k):
+            name = f"{split}{i}.png"
+            for sub in ("foreground", "background"):
+                os.makedirs(os.path.join(base, sub, split), exist_ok=True)
+                img = np.repeat(rng.randint(0, 256, (size // 16, size // 16,
+                                                     3)), 16, 0)
+                Image.fromarray(np.repeat(img, 16, 1).astype(np.uint8)).save(
+                    os.path.join(base, sub, split, name))
+            seg = np.full((size, size), 128, np.uint8)
+            seg[size // 2:] = 255
+            seg[size // 4: size // 2, size // 4: 3 * size // 4] = 0
+            os.makedirs(os.path.join(base, "segment", split), exist_ok=True)
+            Image.fromarray(np.repeat(seg[:, :, None], 3, 2)).save(
+                os.path.join(base, "segment", split, name))
+            entries.append({"fg_name": name, "bg_name": name,
+                            "color_text": GAN_TEXT})
+        os.makedirs(os.path.join(base, "captions"), exist_ok=True)
+        with open(os.path.join(base, "captions", f"{split}.json"), "w") as f:
+            json.dump(entries, f)
+
+
+def gan_cli_run(kind, main, argv_for, harness, make_name):
+    """Run a GAN CLI for GAN_RUNS[kind] steps and resume it, each step
+    timed (synchronised), one warm step under ``torch.profiler``.  Returns
+    (records [(wall, B1, B2, metrics)], {"kernels", "wall"} of the profiled
+    step, launch counts of the path, B1/B2 launches by shape, peak GiB)."""
+    import torch
+    steps, resumed = GAN_RUNS[kind]
+    records, profiled = [], {}
+    make = getattr(harness, make_name)
+
+    def instrumented(*a, **kw):
+        step = make(*a, **kw)
+
+        def timed(state, *batches):
+            fwd, bwd = (read_counts()[k] for k in ("mlstm_fwd", "mlstm_bwd"))
+            if len(records) + 1 == GAN_PROFILED_STEP:
+                (state, metrics), wall, kernels = profile_kernels(
+                    lambda: step(state, *batches))
+                profiled.update(kernels=kernels, wall=wall)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, *batches)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            after = read_counts()
+            records.append((wall, after["mlstm_fwd"] - fwd,
+                            after["mlstm_bwd"] - bwd,
+                            {k: float(v) for k, v in metrics.items()}))
+            return state, metrics
+        return timed
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                                 # path
+    setattr(harness, make_name, instrumented)
+    try:
+        with b1_shapes() as shapes:
+            if main(argv_for(steps, False)) != 0:
+                raise AssertionError(f"{kind} training returned non-zero")
+            if main(argv_for(steps + resumed, True)) != 0:
+                raise AssertionError(f"{kind} resumed training returned "
+                                     "non-zero")
+    finally:
+        setattr(harness, make_name, make)
+    counts = read_counts()                                         # ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if len(records) != steps + resumed:
+        raise AssertionError(f"{kind}: {len(records)} steps ran, expected "
+                             f"{steps} then {resumed} resumed")
+    for i, (_, fwd, bwd, metrics) in enumerate(records):
+        finite = np.isfinite([v for k, v in metrics.items() if k != "nan"])
+        if fwd != 2 or bwd != 1 or not finite.all() or metrics["nan"]:
+            raise AssertionError(f"{kind} step {i + 1}: {fwd} B1 and {bwd} "
+                                 f"B2 launches, metrics {metrics}")
+    return records, profiled, counts, dict(shapes), peak
+
+
+def report_gan_run(kind, records, profiled, counts, shapes, peak, loss_key):
+    """Log a GAN run's step walls, profiled breakdown and launches."""
+    steps, _ = GAN_RUNS[kind]
+    walls = [r[0] for r in records]
+    warm = [w for i, w in enumerate(walls)
+            if i not in (0, steps, GAN_PROFILED_STEP - 1)]
+    median_ms = float(np.median(warm)) * 1e3
+    kernels = profiled["kernels"]
+    total = sum(kernels.values())
+    b1_ms, b2_ms = (sum(v for k, v in kernels.items()
+                        if any(n in k for n in names))
+                    for names in (B1_NAMES, B2_NAMES))
+    conv_ms = sum(v for k, v in kernels.items()
+                  if any(w in k.lower() for w in CONV_KERNEL_WORDS))
+    if total <= 0 or b1_ms <= 0 or b2_ms <= 0:
+        raise AssertionError(f"{kind}: torch.profiler saw no device time for "
+                             f"B1/B2: {sorted(kernels)[:20]}")
+    log(f"  {kind} losses ({loss_key}) per step: "
+        + ", ".join(f"{r[3][loss_key]:.3f}" for r in records))
+    log(f"  {kind} step wall: first {walls[0]:.3f} s, first after resume "
+        f"{walls[steps]:.3f} s, median warm {median_ms:.1f} ms (n="
+        f"{len(warm)}, min {min(warm) * 1e3:.1f}, max {max(warm) * 1e3:.1f});"
+        f" peak device memory {peak:.2f} GiB")
+    log(f"  {kind} profiled step {GAN_PROFILED_STEP} (torch.profiler on, wall "
+        f"{profiled['wall'] * 1e3:.1f} ms): device kernel time {total:.2f} "
+        f"ms, cuDNN/conv kernels {conv_ms:.2f} ms ({conv_ms / total:.1%}), B1 "
+        f"{b1_ms:.3f} ms ({b1_ms / total:.1%}), B2 {b2_ms:.3f} ms "
+        f"({b2_ms / total:.1%}); against the median warm step: device idle "
+        f"{1 - total / median_ms:.1%}")
+    log(f"  {kind} launches on the path: B1 {counts['mlstm_fwd']}, B2 "
+        f"{counts['mlstm_bwd']}; by shape (N, P, H): "
+        + ", ".join(f"{'B2' if k[0] == 'B2' else 'B1'} {k[-3:]}: {v}"
+                    for k, v in sorted(shapes.items(), key=str)))
+    for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"    {ms:8.3f} ms  {name[:100]}")
+
+
+def _moved_generator(kind, cfg, snapshot_root):
+    """Check the newest snapshot's generator moved from its fresh init;
+    returns (step, the snapshot's generator state)."""
+    import torch
+    from sketchyscenecolorization_torch.train import bg_gan, fg_gan
+    from sketchyscenecolorization_torch.utils.checkpoint import (
+        latest_checkpoint, restore_checkpoint)
+    step, path = latest_checkpoint(snapshot_root)
+    saved = restore_checkpoint(path, map_location="cpu")
+    init = (fg_gan if kind == "fg" else bg_gan).build_models(cfg)[0] \
+        .state_dict()
+    moved = sum(not torch.equal(v, init[k])
+                for k, v in saved["generator"].items())
+    if saved["step"] != step or moved < len(init) // 2:
+        raise AssertionError(f"{kind} snapshot step {saved['step']} (dir "
+                             f"{step}), {moved}/{len(init)} leaves moved")
+    return step, saved["generator"]
+
+
+def full_width_gan_training():
+    """``cli_fg_gan --mode train`` at the default ``FGGanConfig`` (192^2,
+    batch 2, base 64, noise 256, 25 classes, vocab 58) on a synthetic 384^2
+    record shard for 6 steps, then ``--resume_from`` to 8; ``cli_bg_gan
+    --mode train`` at the default ``BGGanConfig`` (768^2, batch 1, ngf/ndf
+    64, ``multi_residual``, the residual discriminator) on synthetic
+    captions and images for 4 steps, then resumed to 6.  Returns ({path:
+    launch counts}, {"fg"/"bg": (run dir, data dir)})."""
+    from sketchyscenecolorization_torch import cli_bg_gan, cli_fg_gan
+    from sketchyscenecolorization_torch.config import BGGanConfig, FGGanConfig
+    from sketchyscenecolorization_torch.train import harness
+    from sketchyscenecolorization_torch.utils.checkpoint import (
+        list_checkpoint_steps)
+    paths, runs = {}, {}
+    t0 = time.perf_counter()
+    fg_cfg = FGGanConfig()
+    tmp = tempfile.mkdtemp(prefix="smoke_fg_gan_")
+    write_fg_gan_data(tmp)
+    out = os.path.join(tmp, "outputs")
+    log(f"full-width FG GAN training (cli_fg_gan): {fg_cfg.image_size}^2, "
+        f"batch {fg_cfg.batch_size}, base {fg_cfg.base_channels}, noise "
+        f"{fg_cfg.noise_dim}, {fg_cfg.num_classes} classes, vocab "
+        f"{fg_cfg.vocab_size}, spectral norm, WGAN-SN + ACGAN; synthetic "
+        f"shard of 4 384^2 pairs")
+
+    def fg_argv(steps, resume):
+        run = os.path.join(out, os.listdir(out)[0]) if resume else ""
+        return (["--mode", "train", "--data_base_dir", tmp,
+                 "--max_iter_step", str(steps), "--device", "cuda"]
+                + (["--resume_from", run] if resume
+                   else ["--output_base_dir", out]))
+    fg = gan_cli_run("fg", cli_fg_gan.main, fg_argv, harness,
+                     "make_fg_gan_train_step")
+    (fg_run,) = [os.path.join(out, d) for d in os.listdir(out)]
+    snaps = list_checkpoint_steps(os.path.join(fg_run, "snapshot"))
+    if snaps != [6, 8]:
+        raise AssertionError(f"FG snapshots {snaps}, expected [6, 8]")
+    _moved_generator("fg", fg_cfg, os.path.join(fg_run, "snapshot"))
+    report_gan_run("fg", *fg, "loss_g")
+    log(f"  FG snapshots at steps {snaps}; train_fg_gan phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths["train_fg_gan"] = fg[2]
+    runs["fg"] = (fg_run, tmp)
+    del fg
+    release()
+
+    t0 = time.perf_counter()
+    bg_cfg = BGGanConfig()
+    tmp = tempfile.mkdtemp(prefix="smoke_bg_gan_")
+    write_bg_gan_data(tmp, bg_cfg.image_size)
+    bg_run = os.path.join(tmp, "run")
+    log(f"full-width BG GAN training (cli_bg_gan): {bg_cfg.image_size}^2, "
+        f"batch {bg_cfg.batch_size}, ngf {bg_cfg.ngf}, ndf {bg_cfg.ndf}, "
+        f"multi_residual, residual discriminator, remat off; 2 synthetic "
+        f"entries")
+
+    def bg_argv(steps, resume):
+        return ["--mode", "train", "--data_base_dir", tmp, "--run_dir",
+                bg_run, "--vocab_path",
+                os.path.join(ROOT, "data", "bg_vocab.txt"), "--max_steps",
+                str(steps), "--device", "cuda"]
+    bg = gan_cli_run("bg", cli_bg_gan.main, bg_argv, harness,
+                     "make_bg_gan_train_step")
+    snaps = list_checkpoint_steps(os.path.join(bg_run, "snapshot"))
+    if snaps != [4, 6]:
+        raise AssertionError(f"BG snapshots {snaps}, expected [4, 6]")
+    _moved_generator("bg", bg_cfg, os.path.join(bg_run, "snapshot"))
+    report_gan_run("bg", *bg, "gen_loss")
+    log(f"  BG snapshots at steps {snaps}; train_bg_gan phase "
+        f"{time.perf_counter() - t0:.1f} s")
+    paths["train_bg_gan"] = bg[2]
+    runs["bg"] = (bg_run, tmp)
+    return paths, runs
+
+
+def serve_trained_gans(build_session, runs):
+    """``build_session`` with ``fg_ckpt_dir``/``bg_ckpt_dir`` on the GAN
+    runs' snapshots: its generators hold the snapshots' parameters; one FG
+    command routed to an instance and one BG command run on them (path
+    ``serve_gans``); then ``cli_fg_gan --mode val`` and ``cli_bg_gan
+    --mode test`` on one entry each."""
+    import torch
+    from PIL import Image
+    from sketchyscenecolorization_torch import cli_bg_gan, cli_fg_gan
+    from sketchyscenecolorization_torch.utils.checkpoint import (
+        latest_checkpoint, restore_checkpoint)
+    t0 = time.perf_counter()
+    (fg_run, fg_data), (bg_run, bg_data) = runs["fg"], runs["bg"]
+    tmp = tempfile.mkdtemp(prefix="smoke_serve_gans_")
+    cfg = full_width_config(tmp)
+    eligible = write_scene(os.path.join(tmp, "examples"),
+                           cfg.pipeline.image_size)
+    cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+        cfg.pipeline, fg_ckpt_dir=os.path.join(fg_run, "snapshot"),
+        bg_ckpt_dir=os.path.join(bg_run, "snapshot")))
+    session = build_session(cfg, seed=0, device="cuda")
+    for engine, root in ((session.fg, cfg.pipeline.fg_ckpt_dir),
+                         (session.bg, cfg.pipeline.bg_ckpt_dir)):
+        saved = restore_checkpoint(latest_checkpoint(root)[1],
+                                   map_location="cpu")["generator"]
+        served = engine.model.state_dict()
+        for key, value in saved.items():
+            if not torch.equal(served[key].cpu(), value):
+                raise AssertionError(f"served {key} differs from {root}")
+    routed(session, {"the bus is yellow": [eligible[0]]})
+    reset_counts()                                     # path starts
+    fg_out = session.colorize(IMAGE_ID, "the bus is yellow")
+    bg_out = session.colorize(IMAGE_ID, GAN_TEXT)
+    torch.cuda.synchronize()
+    counts = read_counts()                             # path ends
+    for out in (fg_out, bg_out):
+        img = np.array(Image.open(out))
+        if img.shape != (cfg.pipeline.image_size,) * 2 + (3,):
+            raise AssertionError(f"{out}: shape {img.shape}")
+    if counts["mlstm_fwd"] != 2:
+        raise AssertionError(f"serving the trained generators: "
+                             f"{counts['mlstm_fwd']} B1 launches, expected 2")
+    del session
+    release()
+    if cli_fg_gan.main(["--mode", "val", "--resume_from", fg_run,
+                        "--data_base_dir", fg_data, "--device",
+                        "cuda"]) != 0:
+        raise AssertionError("cli_fg_gan --mode val failed")
+    val = sorted(os.listdir(os.path.join(fg_run, "results", "with_text")))
+    if val != ["bus_bus0_input.png", "bus_bus0_output.png",
+               "bus_bus0_target.png"]:
+        raise AssertionError(f"cli_fg_gan --mode val wrote {val}")
+    if cli_bg_gan.main(["--mode", "test", "--data_base_dir", bg_data,
+                        "--run_dir", bg_run, "--vocab_path",
+                        os.path.join(ROOT, "data", "bg_vocab.txt"),
+                        "--device", "cuda"]) != 0:
+        raise AssertionError("cli_bg_gan --mode test failed")
+    test = sorted(os.listdir(os.path.join(bg_run, "test_results")))
+    if len(test) != 3:
+        raise AssertionError(f"cli_bg_gan --mode test wrote {test}")
+    log(f"session on the GAN runs' snapshots: both generators equal the "
+        f"snapshots'; a routed FG command and a BG command on them (B1 "
+        f"{counts['mlstm_fwd']}); cli_fg_gan --mode val wrote {val}, "
+        f"cli_bg_gan --mode test wrote {test}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def release():
     """Free what the last phase dropped (the engines' noise sources are
     reference cycles, so a dropped session waits for the collector), so
@@ -2524,6 +2979,19 @@ def main() -> int:
         paths[f"color_{variant}"] = variant_session_run(build_session, variant)
         release()
         paths[f"train_{variant}"] = variant_training(variant)
+    release()
+    t0 = time.perf_counter()
+    check_gan_training_against_cpu()
+    log(f"check_gan_training_against_cpu: {time.perf_counter() - t0:.1f} s")
+    release()
+    t0 = time.perf_counter()
+    gan_paths, gan_runs = full_width_gan_training()
+    paths.update(gan_paths)
+    log(f"full_width_gan_training: {time.perf_counter() - t0:.1f} s")
+    release()
+    t0 = time.perf_counter()
+    paths["serve_gans"] = serve_trained_gans(build_session, gan_runs)
+    log(f"serve_trained_gans: {time.perf_counter() - t0:.1f} s")
 
     by_kernel = {k: {path: c[k] for path, c in paths.items() if c[k]}
                  for k in kernel_counters()}

@@ -1,7 +1,8 @@
-"""Host-side data: edit records, pipeline fixtures and the matching training
-set.  Copies of the JAX package's ``data/records.py``, ``data/fixtures.py``
-and ``data/matching_dataset.py``; the FG record shards and the BG dataset
-come with their training slices."""
+"""Host-side data: edit records, pipeline fixtures, the matching training
+set, the FG GAN's record shards and the BG GAN's dataset.  Copies of the
+JAX package's ``data/records.py``, ``data/fixtures.py``,
+``data/matching_dataset.py``, ``data/im_ops.py``, ``data/fg_records.py`` and
+``data/bg_dataset.py``."""
 from .records import fetch_records, update_records, withdraw_records
 from .fixtures import (
     load_sketch_image,
@@ -17,3 +18,8 @@ from .matching_dataset import (
     load_data_gt, load_mask, load_mask_simp, extract_bboxes,
     build_train_info, MatchingTrainDataset,
 )
+from .im_ops import resize_and_pad, resize_and_crop, bboxes_from_masks
+from .fg_records import (
+    write_record_shard, read_record_shard, preprocess_pair, FGPairedDataset,
+)
+from .bg_dataset import BGDataset, load_region_mask

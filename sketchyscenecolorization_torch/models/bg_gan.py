@@ -1,15 +1,14 @@
-"""Background colorization generators
-(``sketchyscenecolorization_tpu/models/bg_gan.py:27-210``; reference
-``Background_Colorization/bg_colorization_main.py:41-507``): the
+"""Background colorization GAN (``sketchyscenecolorization_tpu/models/bg_gan.py``;
+reference ``Background_Colorization/bg_colorization_main.py:41-583``): the
 text-conditioned residual generator at 768^2 with its sky/ground region
-branch, and the pix2pix u-net that serves ``residual_enc_g=False``.
+branch, the pix2pix u-net that serves ``residual_enc_g=False``, and the
+PatchGAN and residual discriminators of training.
 
 NHWC throughout; every conv is bias-free (the batch-stats BN after it gives
 the offset).  Channel counts, which flax infers at call time, are computed
 at construction.  Submodules and leaves are named after the flax tree
 (``encoder_2_0/block_1_bn/scale``, ``mLSTM_G/alstm_w``,
 ``region_br_1_deconv/filter``, ...), so ``utils/bridge.py`` maps it 1:1.
-The discriminators are for training only (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -264,6 +263,67 @@ class Pix2PixGenerator(nn.Module):
             layers.append(getattr(self, f"decoder_{skip + 1}_bn")(y))
         y = torch.relu(torch.cat([layers[-1], layers[0]], dim=-1))
         return torch.tanh(self.decoder_1(y))
+
+
+class PatchDiscriminator(nn.Module):
+    """``create_discriminator`` (bg main :514-549; JAX ``bg_gan.py:213``):
+    a 70x70-style PatchGAN over the (input, target) pair; a sigmoid
+    probability map, 94^2 at 768 input."""
+
+    def __init__(self, ndf: int = 64,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.layer_1 = Conv(6, ndf, 2, g)
+        cin, n_layers = ndf, 3
+        for i in range(n_layers):
+            out_ch = ndf * min(2 ** (i + 1), 8)
+            stride = 1 if i == n_layers - 1 else 2
+            self.add_module(f"layer_{i + 2}", Conv(cin, out_ch, stride, g))
+            self.add_module(f"layer_{i + 2}_bn", BatchStatsNorm(out_ch, g))
+            cin = out_ch
+        self.layer_5 = Conv(cin, 1, 1, g)
+
+    def forward(self, inputs, targets):
+        y = lrelu(self.layer_1(torch.cat([inputs, targets], dim=-1)), 0.2)
+        for i in range(2, 5):
+            y = getattr(self, f"layer_{i}")(y)
+            y = lrelu(getattr(self, f"layer_{i}_bn")(y), 0.2)
+        return torch.sigmoid(self.layer_5(y))
+
+
+class ResidualDiscriminator(nn.Module):
+    """``create_residual_discriminator`` (bg main :551-583; JAX
+    ``bg_gan.py:232``): a residual encoder to S/32 x 1024 over the (input,
+    target) pair; a sigmoid map.  The default discriminator."""
+
+    def __init__(self, ndf: int = 64,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g = generator
+        self.layer_1 = BottleneckResidualEn(6, ndf, 2, g)
+        cin = ndf
+        for i in range(3):
+            out_ch = ndf * min(2 ** (i + 1), 8)
+            self.add_module(f"layer_{i + 2}",
+                            BottleneckResidualEn(cin, out_ch, 2, g))
+            cin = out_ch
+        self.layer_5 = BottleneckResidualEn(cin, 1024, 2, g)
+
+    def forward(self, inputs, targets):
+        y = torch.cat([inputs, targets], dim=-1)
+        for i in range(1, 6):
+            y = getattr(self, f"layer_{i}")(y)
+        return torch.sigmoid(y)
+
+
+def build_discriminator(cfg, generator: Optional[torch.Generator] = None
+                        ) -> nn.Module:
+    """The BG discriminator of a ``BGGanConfig``: residual or PatchGAN, as
+    JAX ``train/bg_gan.py:build_models`` picks."""
+    if cfg.residual_enc_d:
+        return ResidualDiscriminator(ndf=cfg.ndf, generator=generator)
+    return PatchDiscriminator(ndf=cfg.ndf, generator=generator)
 
 
 def build_generator(cfg, generator: Optional[torch.Generator] = None

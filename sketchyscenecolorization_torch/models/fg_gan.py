@@ -1,14 +1,15 @@
-"""Foreground instance-colorization generator: the MRU (SketchyGAN-style)
-generator, text-conditioned through the fusion conv-LSTM
-(``sketchyscenecolorization_tpu/models/fg_gan.py:202-298``; reference
-``obj_lib/models_collection.py:251-377`` and ``obj_lib/mru.py``).
+"""Foreground instance-colorization GAN: the MRU (SketchyGAN-style)
+generator, text-conditioned through the fusion conv-LSTM, and its
+discriminator (``sketchyscenecolorization_tpu/models/fg_gan.py``; reference
+``obj_lib/models_collection.py:251-377,676-786`` and ``obj_lib/mru.py``).
 
-NHWC throughout.  Conditional batch-norm uses batch statistics with
-per-class offset/scale; ``per_sample=True`` reduces them per row (batched
-serving).  Channel counts, which flax infers at call time, are computed
-here at construction.  Module names follow the flax tree.  Only
-``num_blocks=1`` is ported, so every MRU cell has stride 2, and the
-generator's activation is always ``miu_relu``.
+NHWC throughout.  The generator's conditional batch-norm uses batch
+statistics with per-class offset/scale; ``per_sample=True`` reduces them
+per row (batched serving).  The discriminator has no normalizer, PReLU
+activations and spectral norm on every layer.  Channel counts, which flax
+infers at call time, are computed here at construction.  Module names
+follow the flax tree.  Only ``num_blocks=1`` is ported, so every MRU cell
+has stride 2.
 """
 from __future__ import annotations
 
@@ -19,41 +20,55 @@ from torch import nn
 
 from ..ops.image import box_downsample, mean_pool_2x2, nn_upsample_2x
 from .gan_layers import (CondBatchNorm, SNConv, SNDense, TextFusionLSTM,
-                         apply_activation, minmax_normalize)
+                         _prelu_leak, apply_activation, minmax_normalize,
+                         sn_weight)
 
 
-ACT = "miu_relu"
+ACT = "miu_relu"        # the generator's activation; the discriminator's
+D_ACT = "prelu"         # is PReLU
 
 
 class NormAct(nn.Module):
-    """Conditional batch-norm then activation ("norm_activ", ``mru.py:367-376``)."""
+    """Normalizer then activation ("norm_activ", ``mru.py:367-376``):
+    conditional batch-norm with ``num_classes`` (the generator), none
+    without (the discriminator)."""
 
-    def __init__(self, num_classes: int, c: int):
+    def __init__(self, num_classes: Optional[int], c: int,
+                 activation: str = ACT):
         super().__init__()
-        self.CondBatchNorm_0 = CondBatchNorm(num_classes, c)
+        self.activation = activation
+        if num_classes is not None:
+            self.CondBatchNorm_0 = CondBatchNorm(num_classes, c)
+        if activation == "prelu":
+            self.prelu_param = _prelu_leak()
 
     def forward(self, x, labels, per_sample):
-        return apply_activation(self.CondBatchNorm_0(x, labels, per_sample),
-                                ACT)
+        if hasattr(self, "CondBatchNorm_0"):
+            x = self.CondBatchNorm_0(x, labels, per_sample)
+        return apply_activation(x, self.activation, self)
 
 
 class MRUConvBlockV3(nn.Module):
-    """Encoder MRU cell, no output gate, stride 2 (``mru.py:353-461``)."""
+    """Encoder MRU cell, no output gate, stride 2 (``mru.py:353-461``).
+    ``num_classes=None`` leaves out the normalizers (the discriminator)."""
 
     def __init__(self, cin: int, hidden: int, filter_depth: int,
-                 num_classes: int, generator=None):
+                 num_classes: Optional[int], activation: str = ACT,
+                 sn: bool = False, generator=None):
         super().__init__()
-        g = generator
-        self.norm_activation_in = NormAct(num_classes, hidden)
+        g, act = generator, activation
+        self.norm_activation_in = NormAct(num_classes, hidden, act)
         self.update_gate = SNConv(hidden + cin, hidden, 3, bias_init_value=0.5,
-                                  activation="lrelu", generator=g)
-        self.image_conv = SNConv(cin, hidden, 3, generator=g)
-        self.norm_activation_merge_1 = NormAct(num_classes, hidden)
-        self.h_conv1_bn = CondBatchNorm(num_classes, filter_depth)
-        self.h_conv1 = SNConv(hidden, filter_depth, 3, activation=ACT,
+                                  activation="lrelu", sn=sn, generator=g)
+        self.image_conv = SNConv(cin, hidden, 3, sn=sn, generator=g)
+        self.norm_activation_merge_1 = NormAct(num_classes, hidden, act)
+        self.h_conv1_bn = (CondBatchNorm(num_classes, filter_depth)
+                           if num_classes is not None else None)
+        self.h_conv1 = SNConv(hidden, filter_depth, 3, activation=act, sn=sn,
                               generator=g)
-        self.h_conv2 = SNConv(filter_depth, filter_depth, 3, generator=g)
-        self.ht_proj = (SNConv(hidden, filter_depth, 1, generator=g)
+        self.h_conv2 = SNConv(filter_depth, filter_depth, 3, sn=sn,
+                              generator=g)
+        self.ht_proj = (SNConv(hidden, filter_depth, 1, sn=sn, generator=g)
                         if hidden != filter_depth else None)
 
     def forward(self, inp, ht, labels, per_sample):
@@ -62,8 +77,9 @@ class MRUConvBlockV3(nn.Module):
         img_new = self.image_conv(inp)
         ht_new_in = self.norm_activation_merge_1(ht + rg * img_new, labels,
                                                  per_sample)
+        bn = self.h_conv1_bn
         h_new = self.h_conv1(
-            ht_new_in, lambda y: self.h_conv1_bn(y, labels, per_sample))
+            ht_new_in, bn and (lambda y: bn(y, labels, per_sample)))
         h_new = self.h_conv2(h_new)
         ht_orig = ht if self.ht_proj is None else self.ht_proj(ht)
         return mean_pool_2x2(ht_orig + h_new)
@@ -114,11 +130,12 @@ class MRUConvStage(nn.Module):
     """``mru_conv`` stage with one cell (``mru.py:594-655``)."""
 
     def __init__(self, cin, hidden, filter_depth, num_classes,
-                 last_unit: bool, generator=None):
+                 last_unit: bool, activation: str = ACT, sn: bool = False,
+                 generator=None):
         super().__init__()
         self.layer_0 = MRUConvBlockV3(cin, hidden, filter_depth, num_classes,
-                                      generator)
-        self.last_norm = (NormAct(num_classes, filter_depth)
+                                      activation, sn, generator)
+        self.last_norm = (NormAct(num_classes, filter_depth, activation)
                           if last_unit else None)
 
     def forward(self, x, ht, labels, per_sample):
@@ -217,16 +234,86 @@ class MRUGenerator(nn.Module):
         return self.out_conv(ht)
 
 
+class MRUDiscriminator(nn.Module):
+    """``discriminate_mru`` (``models_collection.py:676-786``; JAX
+    ``fg_gan.py:301-361``): an MRU encoder over the (real or generated)
+    image only, spectral norm everywhere (with ``sn``), PReLU, no
+    normalizer; a 1x1-conv patch output and the ACGAN head ``ac_logits``,
+    or with ``proj_d`` a projection head (``class_embedding``,
+    spectral-normed from its own ``embed_u``).
+
+    forward(inputs, target, labels) -> (patch logits [B, S/16, S/16, 1],
+    class logits [B, num_classes] or None); the sketch ``inputs`` are
+    ignored, as in JAX; called with one image, it is the target."""
+
+    def __init__(self, num_classes: int = 25, size: int = 64,
+                 sn: bool = True, proj_d: bool = False,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        g, s = generator, size
+        self.sn, self.proj_d = sn, proj_d
+        self.h0 = SNConv(3, 8, 7, activation=D_ACT, sn=sn, generator=g)
+        hidden = 8
+        for i, feat in enumerate((2 * s, 4 * s, 8 * s, 12 * s)):
+            self.add_module(f"stage_{i + 1}", MRUConvStage(
+                3, hidden, feat, None, last_unit=(i == 3), activation=D_ACT,
+                sn=sn, generator=g))
+            hidden = feat
+        self.disc_out = SNConv(hidden, 1, 1, sn=sn, generator=g)
+        if proj_d:
+            self.class_embedding = nn.Parameter(
+                torch.randn(num_classes, hidden, generator=g))
+            if sn:
+                self.register_buffer("embed_u", torch.ones(1, hidden))
+        else:
+            self.ac_logits = SNDense(hidden, num_classes, sn=sn, generator=g)
+
+    def forward(self, inputs, target=None, labels=None):
+        if target is None:
+            target = inputs
+        x_list = [target]                   # mean-pool pyramid, S first
+        for _ in range(4):
+            x_list.append(mean_pool_2x2(x_list[-1]))
+        ht = self.h0(x_list[0])
+        for i in range(4):
+            ht = getattr(self, f"stage_{i + 1}")(x_list[i], ht, labels,
+                                                 False)
+        disc = self.disc_out(ht)
+        if not self.proj_d:
+            return disc, self.ac_logits(torch.mean(ht, dim=(1, 2)))
+        emb = self.class_embedding
+        if self.sn:
+            emb = sn_weight(self, emb, "embed_u")
+        class_emb = emb[labels.long()][:, None, None, :]
+        return disc + torch.sum(ht * class_emb, dim=-1, keepdim=True), None
+
+
+def _check_ported(cfg) -> None:
+    if cfg.block_type != "MRU" or cfg.num_blocks != 1 or not cfg.lstm_hybrid:
+        raise NotImplementedError(
+            "only the MRU generator and discriminator with num_blocks=1 and "
+            "lstm_hybrid are ported; the variants are ROADMAP item A10")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "the port computes in float32 only; compute_dtype='bfloat16' is "
+            "ROADMAP item A10")
+
+
+def build_discriminator(cfg, generator: Optional[torch.Generator] = None
+                        ) -> MRUDiscriminator:
+    """The FG discriminator of an ``FGGanConfig`` (JAX
+    ``train/fg_gan.py:build_models``)."""
+    _check_ported(cfg)
+    return MRUDiscriminator(num_classes=cfg.num_classes,
+                            size=cfg.base_channels, sn=cfg.spectral_norm,
+                            proj_d=cfg.proj_d, generator=generator)
+
+
 def build_generator(cfg, generator: Optional[torch.Generator] = None
                     ) -> MRUGenerator:
     """The FG generator of an ``FGGanConfig``; raises on the options that
     are not ported yet."""
-    if cfg.block_type != "MRU" or cfg.num_blocks != 1 or not cfg.lstm_hybrid:
-        raise NotImplementedError(
-            "only the MRU generator with num_blocks=1 and lstm_hybrid is "
-            "ported; the variants are ROADMAP item A10")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("the port computes in float32 only")
+    _check_ported(cfg)
     return MRUGenerator(num_classes=cfg.num_classes,
                         vocab_size=cfg.vocab_size, size=cfg.base_channels,
                         image_size=cfg.image_size, noise_dim=cfg.noise_dim,

@@ -1,15 +1,20 @@
-"""Layers of the FG and BG generators (``sketchyscenecolorization_tpu/models/gan_layers.py``).
+"""Layers of the FG and BG GANs (``sketchyscenecolorization_tpu/models/gan_layers.py``).
 
 NHWC throughout.  Batch-norm uses the current batch's statistics even at
 inference, as the reference does; ``per_sample`` reduces them per row.
 Parameter names follow the flax modules (``weights``, ``biases``,
-``offset``, ``scale``, the ``TextLSTM`` leaves), so ``utils/bridge.py`` maps
-a flax ``params`` tree 1:1.  The generator never uses spectral norm
-(``fg_gan.py:224``); the spectral-norm path of ``SNConv``/``SNDense`` is
-ROADMAP item A9 and absent here.
+``offset``, ``scale``, ``prelu_param``, the ``TextLSTM`` leaves), so
+``utils/bridge.py`` maps a flax ``params`` tree 1:1.  The generators never
+use spectral norm; the discriminator of the FG GAN does
+(``SNConv``/``SNDense`` with ``sn=True``): each such layer keeps its
+power-iteration vector as the buffer ``u`` [1, out] (the flax ``sn``
+collection), and a forward stores the iteration's new ``u`` only inside
+``commit_sn``, as a flax ``apply`` with ``mutable=["sn"]`` does.
 """
 from __future__ import annotations
 
+import contextlib
+import math
 from typing import Callable, Optional
 
 import torch
@@ -20,58 +25,135 @@ from ..ops.conv import conv2d
 from ..ops.lstm import lstm_cell
 from ..ops.mlstm import masked_pixel_lstm
 from ..ops.norm import (batch_stats_norm, conditional_batch_stats_norm,
-                        l2_normalize)
+                        l2_normalize, spectral_normalize)
 from .rmi import glorot, uniform
 
+# names of the spectral-norm buffers (the flax ``sn`` collection's leaves)
+SN_BUFFERS = ("u", "embed_u")
 
-def apply_activation(x, activation: Optional[str]):
-    """The activations the generator uses (JAX ``gan_layers.py:102-120``
-    also has the discriminator's)."""
+
+def truncated_normal(shape, generator=None) -> torch.Tensor:
+    """N(0, 1) truncated to [-2, 2], by the inverse CDF (the init of a
+    flax ``sn`` vector, ``jax.random.truncated_normal(k, -2, 2, shape)``)."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    p = lo + torch.rand(shape, generator=generator) * (1.0 - 2.0 * lo)
+    return math.sqrt(2.0) * torch.erfinv(2.0 * p - 1.0)
+
+
+def sn_weight(module: nn.Module, w: torch.Tensor, name: str = "u",
+              out_dim: int = -1) -> torch.Tensor:
+    """w / sigma from the module's buffer ``name``; inside ``commit_sn``
+    the buffer is then rebound to the iteration's new u (rebound, not
+    written in place: the autograd graph keeps the old one)."""
+    w_bar, new_u = spectral_normalize(w, getattr(module, name), out_dim)
+    if getattr(module, "commit_sn", False):
+        setattr(module, name, new_u.detach())
+    return w_bar
+
+
+@contextlib.contextmanager
+def commit_sn(model: nn.Module):
+    """Within the block, every spectral-normed layer of ``model`` stores
+    the new u of each forward (flax ``mutable=["sn"]``)."""
+    layers = [m for m in model.modules()
+              if any(n in dict(m.named_buffers(recurse=False))
+                     for n in SN_BUFFERS)]
+    for m in layers:
+        m.commit_sn = True
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.commit_sn = False
+
+
+def apply_activation(x, activation: Optional[str],
+                     module: Optional[nn.Module] = None):
+    """The activations of JAX ``gan_layers.py:101-120``; ``prelu`` reads
+    the learned leak ``module.prelu_param``."""
     if activation is None:
         return x
+    if activation == "relu":
+        return torch.relu(x)
     if activation == "lrelu":
         return lrelu(x, 0.2)
     if activation == "miu_relu":
         return miu_relu(x)
+    if activation == "sigmoid":
+        return torch.sigmoid(x)
     if activation == "tanh":
         return torch.tanh(x)
+    if activation == "prelu":
+        return torch.maximum(module.prelu_param * x, x)
     raise ValueError(f"unknown activation {activation}")
 
 
+def _prelu_leak() -> nn.Parameter:
+    return nn.Parameter(torch.tensor(0.2))
+
+
+class PReLU(nn.Module):
+    """Learned-scalar leaky ReLU, init 0.2 (``models_collection.py:56-60``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.param = _prelu_leak()
+
+    def forward(self, x):
+        return torch.maximum(self.param * x, x)
+
+
 class SNConv(nn.Module):
-    """SAME conv + bias + optional normalizer + activation (``mru.py:95-140``).
-    Kernel [O, I, k, k] ~ N(0, 0.02)."""
+    """SAME conv (spectral-normed with ``sn``) + bias + optional normalizer
+    + activation (``mru.py:95-140``).  Kernel [O, I, k, k] ~ N(0, 0.02)."""
 
     def __init__(self, cin: int, features: int, kernel: int, stride: int = 1,
                  bias_init_value: float = 0.0,
-                 activation: Optional[str] = None, generator=None):
+                 activation: Optional[str] = None, sn: bool = False,
+                 generator=None):
         super().__init__()
         self.stride = stride
         self.activation = activation
+        self.sn = sn
         self.weights = nn.Parameter(torch.randn(
             features, cin, kernel, kernel, generator=generator) * 0.02)
         self.biases = nn.Parameter(torch.full((features,), bias_init_value))
+        if sn:
+            self.register_buffer("u", truncated_normal((1, features),
+                                                       generator))
+        if activation == "prelu":
+            self.prelu_param = _prelu_leak()
 
     def forward(self, x, normalizer: Optional[Callable] = None):
-        y = conv2d(x, self.weights, stride=self.stride) + self.biases
+        w = sn_weight(self, self.weights, out_dim=0) if self.sn \
+            else self.weights
+        y = conv2d(x, w, stride=self.stride) + self.biases
         if normalizer is not None:
             y = normalizer(y)
-        return apply_activation(y, self.activation)
+        return apply_activation(y, self.activation, self)
 
 
 class SNDense(nn.Module):
-    """Fully-connected layer (``mru.py:52-92``), xavier-uniform weights."""
+    """Fully-connected layer, spectral-normed with ``sn`` (``mru.py:52-92``),
+    xavier-uniform weights [in, out]."""
 
     def __init__(self, cin: int, features: int,
-                 activation: Optional[str] = None, generator=None):
+                 activation: Optional[str] = None, sn: bool = False,
+                 generator=None):
         super().__init__()
         self.activation = activation
+        self.sn = sn
         self.weights = nn.Parameter(glorot((cin, features), generator))
         self.biases = nn.Parameter(torch.zeros(features))
+        if sn:
+            self.register_buffer("u", truncated_normal((1, features),
+                                                       generator))
+        if activation == "prelu":
+            self.prelu_param = _prelu_leak()
 
     def forward(self, x):
-        return apply_activation(x @ self.weights + self.biases,
-                                self.activation)
+        w = sn_weight(self, self.weights) if self.sn else self.weights
+        return apply_activation(x @ w + self.biases, self.activation, self)
 
 
 class CondBatchNorm(nn.Module):

@@ -4,7 +4,9 @@ Batch-stats BN uses the current batch's statistics even at inference, as
 the reference does.  The JAX package selects per-sample statistics with a
 trace-time scope; here the caller passes ``per_sample`` explicitly.  With
 it, the statistics reduce over (H, W) only, so a K-row batch equals K
-single-row calls (JAX ``ops/norm.py:33-59``).
+single-row calls (JAX ``ops/norm.py:33-59``).  Spectral normalization is
+the plain function of JAX ``ops/norm.py:102-124``: the caller keeps the
+power-iteration vector ``u`` and decides when to store its update.
 """
 from __future__ import annotations
 
@@ -51,3 +53,27 @@ def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
     the SQUARED sum; ``F.normalize`` floors the norm instead."""
     sum_sq = torch.sum(x * x, dim=dim, keepdim=True)
     return x * torch.rsqrt(torch.clamp_min(sum_sq, eps))
+
+
+def _sn_l2norm(v, eps: float = 1e-12):
+    """v / (sqrt(sum v^2) + eps) (reference ``sn.py:8-9``): the floor is on
+    the norm, unlike ``l2_normalize``."""
+    return v / (torch.sqrt(torch.sum(v * v)) + eps)
+
+
+def spectral_normalize(w: torch.Tensor, u: torch.Tensor, out_dim: int = -1):
+    """One power iteration of spectral normalization (reference
+    ``obj_lib/sn.py:12-52``; JAX ``ops/norm.py:107-124``).
+
+    w: a weight whose ``out_dim`` axis holds its outputs (the last axis of
+    a JAX kernel; 0 for a torch OIHW conv kernel); u: the stored [1, out]
+    vector.  Returns (w / sigma, the new u).  The gradient flows through
+    v, the new u and sigma, as in JAX (no ``stop_gradient`` there).  Unlike
+    ``torch.nn.utils.spectral_norm``, nothing is detached and nothing is
+    stored: the caller keeps u and commits the new one when it chooses.
+    """
+    w2 = w.movedim(out_dim, -1).reshape(-1, w.shape[out_dim])
+    v = _sn_l2norm(u @ w2.T)          # [1, in_flat]
+    u = _sn_l2norm(v @ w2)            # [1, out]
+    sigma = (v @ w2 @ u.T)[0, 0]
+    return w / sigma, u

@@ -3,12 +3,14 @@
 Vocabularies load from the configured paths when the files exist; otherwise
 index-stable placeholders stand in (``factory.py:25-35``).  Parameters are
 freshly initialised from ``seed`` with ``torch.Generator``s, one seed
-stream per model.  The matching model is restored from the newest snapshot
-that the port's own trainer wrote under ``match_ckpt_dir``
-(``utils/checkpoint.py``); a missing or empty directory leaves the fresh
-parameters, as in JAX.  A snapshot the port cannot read raises: an orbax
-one of the JAX package (ROADMAP A12), or any under ``fg_ckpt_dir`` or
-``bg_ckpt_dir``, since no trainer of the port writes those yet (A9).  A JAX
+stream per model.  Each model is restored from the newest snapshot that
+the port's own trainer wrote (``utils/checkpoint.py``): the matching model
+under ``match_ckpt_dir`` (``train_matching``), the FG and BG generators
+under ``fg_ckpt_dir`` and ``bg_ckpt_dir`` (the ``snapshot`` directory of a
+``train_fg_gan``/``train_bg_gan`` run; the discriminators and moments in
+it are not read).  A missing or empty directory leaves the fresh
+parameters, as in JAX.  A step directory without ``state.pt`` (an orbax
+snapshot of the JAX package) raises: reading those is ROADMAP A12.  A JAX
 parameter tree can be loaded into the built models with
 ``utils.bridge.load_jax_tree``.
 """
@@ -44,19 +46,9 @@ def _placeholder_vocab(size: int) -> Dict[str, int]:
     return {w: i for i, w in enumerate(words)}
 
 
-def _refuse_gan_snapshots(cfg: FrameworkConfig) -> None:
-    for name in ("fg_ckpt_dir", "bg_ckpt_dir"):
-        ckpt_dir = getattr(cfg.pipeline, name)
-        found = latest_checkpoint(ckpt_dir) if ckpt_dir else None
-        if found is not None:
-            raise NotImplementedError(
-                f"{name} holds a snapshot ({found[1]}): restoring GAN weights "
-                "comes with GAN training, ROADMAP item A9")
-
-
-def restore_matching(model: RMI, ckpt_dir: str) -> Optional[int]:
-    """Load the newest ``train_matching`` snapshot under ``ckpt_dir`` into
-    ``model``; returns its step, or None when there is none."""
+def _newest_snapshot(ckpt_dir: str):
+    """(step, saved mapping) of the newest port snapshot under
+    ``ckpt_dir``, or None."""
     found = latest_checkpoint(ckpt_dir) if ckpt_dir else None
     if found is None:
         return None
@@ -64,16 +56,40 @@ def restore_matching(model: RMI, ckpt_dir: str) -> Optional[int]:
         raise NotImplementedError(
             f"{found[1]} has no {STATE_FILE}: reading the JAX package's orbax "
             "snapshots is ROADMAP item A12")
-    model.load_state_dict(
-        restore_checkpoint(found[1], map_location="cpu")["model"])
-    return found[0]
+    return found[0], restore_checkpoint(found[1], map_location="cpu")
+
+
+def _restore(module: torch.nn.Module, ckpt_dir: str, key: str,
+             trainer: str) -> Optional[int]:
+    newest = _newest_snapshot(ckpt_dir)
+    if newest is None:
+        return None
+    step, saved = newest
+    if key not in saved:
+        raise ValueError(f"the snapshot at step {step} under {ckpt_dir} "
+                         f"holds no {key!r}: not a {trainer} snapshot")
+    module.load_state_dict(saved[key])
+    return step
+
+
+def restore_matching(model: RMI, ckpt_dir: str) -> Optional[int]:
+    """Load the newest ``train_matching`` snapshot under ``ckpt_dir`` into
+    ``model``; returns its step, or None when there is none."""
+    return _restore(model, ckpt_dir, "model", "train_matching")
+
+
+def restore_generator(model: torch.nn.Module, ckpt_dir: str
+                      ) -> Optional[int]:
+    """Load the generator of the newest ``train_fg_gan``/``train_bg_gan``
+    snapshot under ``ckpt_dir`` into ``model``; returns its step, or None
+    when there is none."""
+    return _restore(model, ckpt_dir, "generator", "GAN training")
 
 
 def build_session(cfg: FrameworkConfig, seed: int = 0,
                   device="cuda") -> ColorizationSession:
-    """Matching, FG and BG engines on ``device``: the matching model from
-    its newest snapshot, when there is one, the rest fresh."""
-    _refuse_gan_snapshots(cfg)
+    """Matching, FG and BG engines on ``device``, each model from its
+    newest snapshot when there is one, else fresh."""
     m_vocab = (_load_vocab_or_none(cfg.pipeline.match_vocab_path)
                or _placeholder_vocab(cfg.matching.vocab_size))
     f_vocab = (_load_vocab_or_none(cfg.pipeline.fg_vocab_path)
@@ -84,8 +100,10 @@ def build_session(cfg: FrameworkConfig, seed: int = 0,
     restore_matching(rmi, cfg.pipeline.match_ckpt_dir)
     fgen = fg_gan.build_generator(
         cfg.fg_gan, torch.Generator().manual_seed(2 * seed + 1))
+    restore_generator(fgen, cfg.pipeline.fg_ckpt_dir)
     bgen = bg_gan.build_generator(
         cfg.bg_gan, torch.Generator().manual_seed(BG_SEED_OFFSET + seed))
+    restore_generator(bgen, cfg.pipeline.bg_ckpt_dir)
     return ColorizationSession(
         cfg,
         MatchingEngine(cfg.matching, rmi, m_vocab, cfg.pipeline.score_thresh,

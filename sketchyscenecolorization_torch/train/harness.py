@@ -1,17 +1,26 @@
-"""Matching training harness (``sketchyscenecolorization_tpu/train/harness.py:73-115``,
-``train_matching``; reference ``matching_main.py:81-241``).
+"""Training harnesses (``sketchyscenecolorization_tpu/train/harness.py``):
+matching (reference ``matching_main.py:81-241``), the FG GAN
+(``obj_colorization_main.py`` + ``obj_lib/main_procedure.py:62-242``) and
+the BG GAN (``bg_colorization_main.py:894-975``).
 
 Background batch workers -> host-to-device copies in flight -> train step
--> loss EMA / throughput printing and a JSONL metric log -> snapshots with
-latest-step resume.  The JAX harness's optional profiler window is left
-out; ``chip_smoke.py`` profiles a step with ``torch.profiler`` instead.
+-> loss / throughput printing and a JSONL metric log -> snapshots with
+latest-step resume (``<run_dir>/snapshots`` for matching,
+``<run_dir>/snapshot`` for the GANs, as in JAX).  The FG harness returns
+-1 on a NaN loss so that ``run_with_nan_restart`` relaunches it from its
+newest snapshot.  The JAX harness's optional profiler window is left out;
+``chip_smoke.py`` profiles a step with ``torch.profiler`` instead.
 """
 from __future__ import annotations
 
 import os
 from typing import Optional
 
-from ..config import MatchingConfig
+import torch
+
+from ..config import BGGanConfig, FGGanConfig, MatchingConfig
+from ..data.bg_dataset import BGDataset
+from ..data.fg_records import FGPairedDataset
 from ..data.matching_dataset import MatchingTrainDataset
 from ..models.rmi import RMI
 from ..parallel import BackgroundGenerator, prefetch_to_device
@@ -19,8 +28,12 @@ from ..utils.checkpoint import (latest_checkpoint, restore_checkpoint,
                                 save_checkpoint)
 from ..utils.logging import (JsonlMetricWriter, LossEMA, ThroughputMeter,
                              count_params)
+from .bg_gan import (BGGanTrainState, LOSS_KEYS, create_bg_gan_state,
+                     make_bg_gan_train_step)
+from .fg_gan import create_fg_gan_state, make_fg_gan_train_step
 from .matching import (MatchingTrainState, create_matching_state,
                        make_matching_train_step)
+from .watchdog import NaNWatchdog
 
 
 def train_matching(cfg: MatchingConfig, dataset: MatchingTrainDataset,
@@ -65,6 +78,106 @@ def train_matching(cfg: MatchingConfig, dataset: MatchingTrainDataset,
                 meter.window_reset()
             if n_iter % cfg.snapshot_interval == 0 or n_iter == max_iters:
                 save_checkpoint(ckpt_dir, n_iter, state.state_dict(),
+                                max_to_keep=10)
+    finally:
+        gen.close()
+        writer.close()
+    return state
+
+
+def _resume(state, ckpt_dir: str, device) -> int:
+    found = latest_checkpoint(ckpt_dir)
+    if found is not None:
+        state.load_state_dict(restore_checkpoint(found[1],
+                                                 map_location=device))
+    if state.step == 0:
+        count_params(dict(state.generator.named_parameters()), "generator")
+        count_params(dict(state.discriminator.named_parameters()),
+                     "discriminator")
+    return state.step
+
+
+def train_fg_gan(cfg: FGGanConfig, dataset: FGPairedDataset, run_dir: str,
+                 seed: int = 0, log_every: int = 100,
+                 max_iters: Optional[int] = None, device="cuda") -> int:
+    """One FG GAN training launch (``main_procedure.train`` :62-242) up to
+    ``max_iters`` (default ``cfg.max_iters``), resuming from the newest
+    snapshot under ``<run_dir>/snapshot``; the D and G batches come from
+    two independent streams, like the reference's two queues; snapshots
+    every ``cfg.snapshot_interval`` steps and at the end (100 kept).
+    Returns 0 on completion, -1 on a NaN abort."""
+    max_iters = max_iters or cfg.max_iters
+    ckpt_dir = os.path.join(run_dir, "snapshot")
+    state = create_fg_gan_state(cfg, seed, device)
+    start = _resume(state, ckpt_dir, device)
+    step_fn = make_fg_gan_train_step(cfg, seed=seed + 1)
+    writer = JsonlMetricWriter(os.path.join(run_dir, "metrics.jsonl"))
+    meter = ThroughputMeter(max_iters)
+    watchdog = NaNWatchdog()
+    gen_d = BackgroundGenerator(dataset.make_batch, num_steps=max_iters - start)
+    gen_g = BackgroundGenerator(dataset.make_batch, num_steps=max_iters - start)
+    i = start
+    try:
+        for batch_d, batch_g in zip(prefetch_to_device(gen_d, device),
+                                    prefetch_to_device(gen_g, device)):
+            meter.start()
+            state, metrics = step_fn(state, batch_d, batch_g)
+            tripped = watchdog.check(metrics, i + 1)   # waits for the step
+            stats = meter.stop(i)
+            i += 1
+            if tripped:
+                print(f"NaN at iter {i}; aborting with status -1")
+                return -1
+            if i % log_every == 0 or i == max_iters:
+                print(f"iter {i}: loss_d={float(metrics['loss_d']):.4f} "
+                      f"loss_g={float(metrics['loss_g']):.4f} "
+                      f"{stats['sec_per_step']:.3f}s/step")
+                writer.write(i, {k: metrics[k] for k in
+                                 ("loss_d", "loss_g", "recon_l1")} | stats)
+            if i % cfg.snapshot_interval == 0 or i == max_iters:
+                save_checkpoint(ckpt_dir, i, state.state_dict(),
+                                max_to_keep=100)
+    finally:
+        gen_d.close()
+        gen_g.close()
+        writer.close()
+    return 0
+
+
+def train_bg_gan(cfg: BGGanConfig, dataset: BGDataset, run_dir: str,
+                 seed: int = 0, progress_every: int = 50,
+                 max_steps: Optional[int] = None,
+                 device="cuda") -> BGGanTrainState:
+    """The ``bg_colorization`` training loop (:894-975) up to ``max_steps``
+    (default ``cfg.max_steps``), resuming from the newest snapshot under
+    ``<run_dir>/snapshot``; the loss EMAs printed every ``progress_every``
+    steps; snapshots every ``cfg.snapshot_interval`` steps and at the end
+    (10 kept)."""
+    max_steps = max_steps or cfg.max_steps
+    ckpt_dir = os.path.join(run_dir, "snapshot")
+    state = create_bg_gan_state(cfg, seed, device)
+    start = _resume(state, ckpt_dir, device)
+    step_fn = make_bg_gan_train_step(cfg)
+    writer = JsonlMetricWriter(os.path.join(run_dir, "metrics.jsonl"))
+    meter = ThroughputMeter(max_steps)
+    gen = BackgroundGenerator(dataset.make_batch, num_steps=max_steps - start)
+    step = start
+    try:
+        for batch in prefetch_to_device(gen, device, depth=2):
+            meter.start()
+            state, metrics = step_fn(state, batch)
+            ema = dict(zip(LOSS_KEYS, torch.stack(     # waits for the step
+                [metrics["ema/" + k] for k in LOSS_KEYS]).tolist()))
+            stats = meter.stop(step)
+            step += 1
+            if step % progress_every == 0 or step == max_steps:
+                print(f"step {step}: " + " ".join(
+                    f"{k}={v:.4f}" for k, v in ema.items())
+                    + f" image/sec={stats['steps_per_sec']:.1f}")
+                writer.write(step, {f"ema/{k}": v for k, v in ema.items()}
+                             | stats)
+            if step % cfg.snapshot_interval == 0 or step == max_steps:
+                save_checkpoint(ckpt_dir, step, state.state_dict(),
                                 max_to_keep=10)
     finally:
         gen.close()

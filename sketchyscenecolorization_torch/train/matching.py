@@ -22,12 +22,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Tuple
 
-import numpy as np
 import torch
 
 from ..config import MatchingConfig
 from ..models.rmi import RMI
 from .losses import l2_regularization_loss, weighted_logistic_loss
+from .optim import AdamState, adam_update
 from .schedules import tf1_polynomial_decay
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -114,19 +114,10 @@ def make_matching_train_step(cfg: MatchingConfig):
         cost, aux = matching_loss_fn(state.model, cfg, batch, names)
         cost.backward()
         lr = schedule(state.step)
-        count = np.float32(state.step + 1)
-        bc1 = float(np.float32(1.0) - np.float32(ADAM_B1) ** count)
-        bc2 = float(np.float32(1.0) - np.float32(ADAM_B2) ** count)
-        with torch.no_grad():
-            for name in names:
-                p, g = params[name], params[name].grad
-                if name.endswith(".biases"):
-                    g = g * BIAS_LR_MULT
-                mu, nu = state.mu[name], state.nu[name]
-                mu.copy_((1.0 - ADAM_B1) * g + ADAM_B1 * mu)
-                nu.copy_((1.0 - ADAM_B2) * (g * g) + ADAM_B2 * nu)
-                update = (mu / bc1) / (torch.sqrt(nu / bc2) + ADAM_EPS)
-                p.add_(update * (-lr))
+        grads = {n: params[n].grad * BIAS_LR_MULT if n.endswith(".biases")
+                 else params[n].grad for n in names}
+        adam_update(params, grads, AdamState(state.mu, state.nu, state.step),
+                    lr, ADAM_B1, ADAM_B2, ADAM_EPS)
         state.step += 1
         metrics = {"cost": cost.detach(),
                    "cls_loss": aux["cls_loss"].detach(),

@@ -3,7 +3,8 @@
 RecurAttn op, the BG generator and the visualization copy included),
 builds a small session at the default ``PipelineConfig`` (device
 compositing on) and runs one BG and one FG command on the synthetic
-fixtures, takes one matching train step, runs the word-attention and
+fixtures, takes one matching, one FG GAN and one BG GAN train step, runs
+the word-attention and
 RecurAttn fusions once, and ``python -m sketchyscenecolorization_torch
 --help`` runs.  Its own copies of the JAX package's jax-free modules
 (``config``, ``text``, ``data``) agree with the originals."""
@@ -32,7 +33,13 @@ SCRIPT = textwrap.dedent("""
     import numpy as np
     import torch
     import sketchyscenecolorization_torch.cli
+    import sketchyscenecolorization_torch.cli_bg_gan
+    import sketchyscenecolorization_torch.cli_fg_gan
     import sketchyscenecolorization_torch.cli_matching
+    import sketchyscenecolorization_torch.data.bg_dataset
+    import sketchyscenecolorization_torch.data.fg_records
+    import sketchyscenecolorization_torch.data.im_ops
+    import sketchyscenecolorization_torch.train.eval_procedures
     import sketchyscenecolorization_torch.models.bg_gan
     import sketchyscenecolorization_torch.ops.recur_attn
     import sketchyscenecolorization_torch.utils.visualization
@@ -78,6 +85,28 @@ SCRIPT = textwrap.dedent("""
         "target_mask": torch.ones(1, 32, 32, 1)}
     state, metrics = make_matching_train_step(matching)(state, batch)
     assert state.step == 1 and np.isfinite(float(metrics["cost"]))
+    from sketchyscenecolorization_torch.train import (
+        create_bg_gan_state, create_fg_gan_state, make_bg_gan_train_step,
+        make_fg_gan_train_step)
+    fg = FGGanConfig(batch_size=2, image_size=32, vocab_size=16, max_len=4,
+                     base_channels=4, noise_dim=8)
+    img = torch.from_numpy(rng.uniform(-1, 1, (2, 32, 32, 3))
+                           .astype(np.float32))
+    fg_batch = {"images": img, "sketches": img, "images_d": img,
+                "class_id": torch.tensor([1, 2]),
+                "class_id_d": torch.tensor([3, 4]),
+                "tokens": torch.tensor([[0, 2, 3, 4], [5, 6, 7, 8]])}
+    fg_state, metrics = make_fg_gan_train_step(fg)(
+        create_fg_gan_state(fg, device="cpu"), fg_batch, fg_batch)
+    assert fg_state.step == 1 and not bool(metrics["nan"])
+    bg = BGGanConfig(image_size=32, vocab_size=16, ngf=4, ndf=4,
+                     multi_residual=False)
+    bg_batch = {"inputs": img[:1], "targets": img[1:],
+                "tokens": torch.tensor([[0, 0, 2, 3, 4, 5, 6, 7]]),
+                "labels": torch.ones(1, 32, 32, dtype=torch.long)}
+    bg_state, metrics = make_bg_gan_train_step(bg)(
+        create_bg_gan_state(bg, device="cpu"), bg_batch)
+    assert bg_state.step == 1 and not bool(metrics["nan"])
     for variant in (dict(use_attn=True), dict(fusion_type="RecurAttn")):
         kw = dict(matching.__dict__, **variant)
         with torch.no_grad():
@@ -140,6 +169,11 @@ def test_text_and_data_copies_match_jax(tmp_path):
     import random
     assert ttext.augment_caption_with_attr("the bus", random.Random(3)) == \
         jtext.augment_caption_with_attr("the bus", random.Random(3))
+    im = np.random.RandomState(0).randint(0, 256, (30, 20, 3)).astype(
+        np.uint8)
+    for fn in ("resize_and_pad", "resize_and_crop"):
+        np.testing.assert_array_equal(getattr(tdata, fn)(im, 16, 24),
+                                      getattr(jdata, fn)(im, 16, 24))
     mask = np.zeros((8, 8, 2), np.uint8)
     mask[2:5, 1:3, 0] = 1
     np.testing.assert_array_equal(tdata.extract_bboxes(mask),
@@ -160,12 +194,18 @@ def test_entry_points_default_to_the_card():
     """Nothing runs on the CPU unless the caller asks for it."""
     import inspect
 
-    from sketchyscenecolorization_torch import cli, cli_matching
+    from sketchyscenecolorization_torch import (cli, cli_bg_gan, cli_fg_gan,
+                                                cli_matching)
     from sketchyscenecolorization_torch.pipeline import (
         BGColorizeEngine, FGColorizeEngine, MatchingEngine, build_session)
-    from sketchyscenecolorization_torch.train import train_matching
+    from sketchyscenecolorization_torch.train import (
+        create_bg_gan_state, create_fg_gan_state, eval_procedures,
+        train_bg_gan, train_fg_gan, train_matching)
     for fn in (build_session, MatchingEngine, FGColorizeEngine,
-               BGColorizeEngine, train_matching):
+               BGColorizeEngine, train_matching, train_fg_gan, train_bg_gan,
+               create_fg_gan_state, create_bg_gan_state,
+               eval_procedures.fg_validation, eval_procedures.fg_test,
+               eval_procedures.fg_inference):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
-    for mod in (cli, cli_matching):
+    for mod in (cli, cli_matching, cli_fg_gan, cli_bg_gan):
         assert mod.make_parser().get_default("device") == "cuda"

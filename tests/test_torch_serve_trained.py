@@ -103,11 +103,14 @@ def test_session_serves_trained_matching_weights(trained):
 def test_unreadable_snapshots_raise(trained, tmp_path):
     tmp, run_dir, _ = trained
     fg = tmp_path / "fg"
-    (fg / "step_3").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="A9"):
+    (fg / "step_3").mkdir(parents=True)          # a GAN step without state.pt
+    with pytest.raises(NotImplementedError, match="A12"):
         build_session(_framework(tmp, fg_ckpt_dir=fg), device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A12"):
         build_session(_framework(tmp, bg_ckpt_dir=fg), device="cpu")
+    with pytest.raises(ValueError, match="generator"):   # not a GAN run's
+        build_session(_framework(tmp, fg_ckpt_dir=os.path.join(
+            run_dir, "snapshots")), device="cpu")
     orbax = tmp_path / "orbax"
     shutil.copytree(os.path.join(run_dir, "snapshots"), orbax)
     (orbax / "step_7" / "default").mkdir(parents=True)   # no state.pt
