@@ -11,13 +11,19 @@ and prints no result):
      B4), and the RecurAttn recurrence ``csrc/recur_attn_fwd.cu`` (B5) and
      ``csrc/recur_attn_bwd.cu`` (B6), which share the tensor-core kernels of
      ``csrc/lstm_tc.cuh`` and ``csrc/recur_tc.cuh``;
-  2. turn TF32 off for cuDNN convolutions and cuBLAS matmuls;
+  2. print the TF32 flags as torch sets them; the port's entry points
+     turn TF32 off (``ops/conv.py:apply_compute_dtype``), and after the
+     first ``build_session`` (phase 5) the script prints them again and
+     fails if either is on; where it builds models itself it calls
+     ``apply_compute_dtype``;
   3. hold B1 against ``mlstm_plain`` on the card at the RMI, FG (serving,
-     N = 4, and GAN training, N = 2) and BG shapes, at H = 250 (not a multiple of 4) and at the FG shape with a
-     row without a kept step (max-abs error on h <= 1e-4) and time both;
+     N = 4, and GAN training, N = 2) and BG shapes, at H = 250 (not a
+     multiple of 4), at the FG shape with a row without a kept step and at
+     the matching evaluation's (N = 5 captions of one image, P = 9216,
+     H = 500) (max-abs error on h <= 1e-4) and time both;
      profile one B1 call at the RMI shape by launch kind;
-  4. hold B2 against ``mlstm_bwd_plain`` at the same shapes but the last
-     (max-abs error of each gradient <= 1e-4 of its largest magnitude),
+  4. hold B2 against ``mlstm_bwd_plain`` at the same shapes but the two
+     that only B1 runs (max-abs error of each gradient <= 1e-4 of its largest magnitude),
      check that two launches agree bit for bit, and time both against its
      f32 and 3xTF32 tensor-core bounds; profile one B2 call at the RMI
      shape by launch kind (layout, staging forward, sweep, d_W_h, d_step);
@@ -67,7 +73,9 @@ and prints no result):
      launches tallied by shape), records equal to sequential ``colorize``;
      and
      one A/B line each for ``device_compositing``, ``compact_fetch``,
-     ``device_color_gradient`` and ``async_png_writes``;
+     ``device_color_gradient`` and ``async_png_writes``; after the BG
+     phase one line with a 768^2 BG generator forward in f32 and with TF32
+     switched on locally (max-abs difference, both times);
   8. write a synthetic 768x768 matching corpus and run ``cli_matching
      --mode train`` at the default full-width configuration for 6 steps,
      then resume it for 2 more: B1 and B2 launch every step, losses are
@@ -77,7 +85,12 @@ and prints no result):
      run's snapshots holds the trained weights and gives the trained
      module's ``up`` logits bit for bit, and ``cli_matching --mode
      inference`` on the run writes its prediction (path
-     ``infer_matching``);
+     ``infer_matching``); ``cli_matching --mode eval`` at the default
+     full width on the run's snapshot over a synthetic val split of 4
+     768^2 images x 5 captions with mask AP (path ``eval_matching``: walls
+     per image and per caption, B1 launches and shape, peak memory, the
+     summary lines), then ``eval_matching`` at 48^2 on CUDA and on the CPU
+     from the same weights (masks and results equal);
   9. hold B3/B4 against ``mlstm_attn_plain``/``mlstm_attn_bwd_plain`` at
      the RMI shape, a ragged one with a row without a kept step and H = 250
      (acc within 1e-4; each gradient, d_attn included, within 1e-4 of its
@@ -108,8 +121,20 @@ and prints no result):
      shape; then a full-width session on both runs' snapshots (path
      ``serve_gans``: its generators equal the snapshots', a routed FG and a
      BG command), ``cli_fg_gan --mode val`` and ``cli_bg_gan --mode test``
-     on one entry each;
- 12. print the kernels line (six kernels: launches per path, times, the
+     on one entry each; the small-config CUDA-vs-CPU GAN check also runs
+     three FG steps with the perceptual term;
+ 12. Inception-v4 with its heads (1001 classes) at 299^2, batch 8: forward
+     ms, GFLOP/s and peak memory, CUDA against the CPU at batch 1 (each
+     endpoint within 1e-4 of its largest magnitude), and
+     ``inception_v4_class_probs``/``acgan_class_probs`` with
+     ``inception_score`` on 16 outputs of the FG run's generator (path
+     ``inception``);
+ 13. ``train_fg_gan`` at the default ``FGGanConfig`` with
+     ``coeff_perceptual`` 1 and a fresh Inception-v4 stem, 3 steps resumed
+     to 4 (path ``train_fg_gan_perceptual``: step walls, a profiled step,
+     Inception's share of the device time, peak memory, B1 twice and B2
+     once a step);
+ 14. print the kernels line (six kernels: launches per path, times, the
      f32 and 3xTF32 bounds, device ms by launch kind, HMMA counts),
      the card's name and power limit, and last ``{"ok": true, "device":
      {...}}``.
@@ -150,7 +175,10 @@ SHAPES = [
     ("bg", 1, 576, 1024, 8, 5, True),
     ("h250", 2, 1001, 250, 15, 7, False),            # cli_matching scale 0.5
     ("fg_empty_row", 4, 36, 512, 15, [4, 4, 0, 4], True),   # B1 only
+    # matching evaluation: one image's five captions (augmented) at once
+    ("rmi_eval", 5, 9216, 500, 15, [8, 8, 8, 5, 12], False),  # B1 only
 ]
+B1_ONLY = ("fg_empty_row", "rmi_eval")      # shapes B2 is not checked at
 NO_LIBRARY = ("no single PyTorch call computes the masked TF-cell "
               "recurrence (gate order i,j,f,o, forget bias 1, per-step "
               "freeze of c and h)")
@@ -432,12 +460,14 @@ def check_kernel(mlstm):
 
 
 def check_bwd_kernel(mlstm):
-    """B2 vs plain on the card at the shapes of SHAPES but the last, two
+    """B2 vs plain on the card at the shapes of SHAPES but B1_ONLY, two
     launches bitwise equal; returns {shape name: (max_abs_err, max_rel_err,
     kernel ms, plain ms)}."""
     import torch
     results = {}
-    for name, n, p, hid, t, n_valid, front in SHAPES[:-1]:
+    for name, n, p, hid, t, n_valid, front in SHAPES:
+        if name in B1_ONLY:
+            continue
         args = shape_inputs(n, p, hid, t, n_valid, front)
         got = mlstm.mlstm_bwd_cuda(*args)
         again = mlstm.mlstm_bwd_cuda(*args)
@@ -1879,6 +1909,7 @@ def check_training_against_cpu(variant: str = ""):
     import torch
     from sketchyscenecolorization_torch.config import MatchingConfig
     from sketchyscenecolorization_torch.models.rmi import RMI
+    from sketchyscenecolorization_torch.ops.conv import apply_compute_dtype
     from sketchyscenecolorization_torch.parallel import to_device
     from sketchyscenecolorization_torch.train import (
         create_matching_state, make_matching_train_step)
@@ -1886,6 +1917,7 @@ def check_training_against_cpu(variant: str = ""):
                          w_emb_dim=16, v_emb_dim=16, m_rnn_size=8,
                          w_rnn_size=16, max_len=5, lr_decay_step=100,
                          **VARIANTS.get(variant, {}))
+    apply_compute_dtype(cfg)            # the script builds the models itself
     fwd_name, bwd_name = FUSION_KERNELS[variant]
     cost_rtol, leaf_atol = 1e-4, 3 * 1e-2 * cfg.start_lr
     init = RMI(cfg, torch.Generator().manual_seed(0)).state_dict()
@@ -1945,14 +1977,18 @@ def check_training_against_cpu(variant: str = ""):
         f"{fwd_name} and {b_gpu} {bwd_name} launches on CUDA")
 
 
-def write_matching_corpus(base: str, size: int, n_images: int = 2):
-    """Synthetic training split in the layout ``load_data_gt`` reads
-    (``train/DRAWING_GT`` PNG, ``train/INSTANCE_GT`` and ``train/CLASS_GT``
-    .mat with sparse instance ids) plus ``sentence_instance_train.json``."""
+def write_matching_corpus(base: str, size: int, n_images: int = 2,
+                          split: str = "train"):
+    """Synthetic split in the layouts ``load_data_gt`` and ``load_seg_data``
+    read (``<split>/DRAWING_GT`` PNG, ``<split>/INSTANCE_GT`` and
+    ``<split>/CLASS_GT`` .mat with sparse instance ids,
+    ``<split>/seg_data/<id>_datas.npz`` with each instance's box as a
+    predicted instance) plus ``sentence_instance_<split>.json``, five
+    captions an image."""
     import scipy.io
     from PIL import Image
-    train = os.path.join(base, "train")
-    for sub in ("DRAWING_GT", "INSTANCE_GT", "CLASS_GT"):
+    train = os.path.join(base, split)
+    for sub in ("DRAWING_GT", "INSTANCE_GT", "CLASS_GT", "seg_data"):
         os.makedirs(os.path.join(train, sub), exist_ok=True)
     line = max(1, size // 256)
     captions = []
@@ -1961,6 +1997,8 @@ def write_matching_corpus(base: str, size: int, n_images: int = 2):
         inst = np.zeros((size, size), np.uint8)
         cls = np.zeros((size, size), np.uint8)
         shift = int(0.03 * size) * (image_id - 1)
+        masks = np.empty(len(INSTANCES), dtype=object)
+        boxes = np.zeros((len(INSTANCES), 4), np.int32)
         for i, (cat, _, frac) in enumerate(INSTANCES):
             y1, x1, y2, x2 = (int(f * size) for f in frac)
             x1, x2 = x1 + shift, x2 + shift
@@ -1968,6 +2006,12 @@ def write_matching_corpus(base: str, size: int, n_images: int = 2):
             box[:line], box[-line:], box[:, :line], box[:, -line:] = 0, 0, 0, 0
             inst[y1:y2 + 1, x1:x2 + 1] = 2 * i + 3
             cls[y1:y2 + 1, x1:x2 + 1] = cat
+            boxes[i] = (y1, x1, y2, x2)
+            masks[i] = np.ones((y2 - y1 + 1, x2 - x1 + 1), np.uint8)
+        np.savez(os.path.join(train, "seg_data", f"{image_id}_datas.npz"),
+                 pred_masks=masks,
+                 pred_class_ids=np.array([c for c, _, _ in INSTANCES]),
+                 pred_boxes=boxes)
         Image.fromarray(sketch).save(os.path.join(
             train, "DRAWING_GT", f"L0_sample{image_id}.png"))
         scipy.io.savemat(os.path.join(
@@ -1979,7 +2023,8 @@ def write_matching_corpus(base: str, size: int, n_images: int = 2):
         caps = {f"the {name}": [i] for i, (_, name, _) in enumerate(INSTANCES)}
         caps["the bus and the car"] = [0, 1]
         captions.append({"key": image_id, "sen_instIdx_map": caps})
-    with open(os.path.join(base, "sentence_instance_train.json"), "w") as f:
+    with open(os.path.join(base, f"sentence_instance_{split}.json"),
+              "w") as f:
         json.dump(captions, f)
 
 
@@ -2391,7 +2436,8 @@ def variant_training(variant):
 # ------------------------------------------------------------ GAN training
 
 GAN_SMALL_STEPS = 3           # CUDA-vs-CPU steps of each GAN
-GAN_RUNS = {"fg": (6, 2), "bg": (4, 2)}   # full-width steps, then resumed
+GAN_RUNS = {"fg": (6, 2), "bg": (4, 2),   # full-width steps, then resumed
+            "fg_perceptual": (3, 1)}
 GAN_PROFILED_STEP = 4         # a warm step of each run, under the profiler
 GAN_LOSS_RTOL, GAN_SN_ATOL = 1e-4, 1e-5
 GAN_CLEAR_MU, GAN_UPDATE_ATOL, GAN_ADAM_BOUND = 1e-5, 1e-2, 4.0
@@ -2425,7 +2471,9 @@ def small_gan_batches(rng, fg, bg):
 def check_gan_training_against_cpu():
     """Three FG and three BG train steps at small configs (64^2, base 4,
     batch 2) on CUDA and on the CPU, with the same batches and draws (the
-    steps draw on the host).  Each step starts both from the CPU run's
+    steps draw on the host), and three FG steps with the perceptual term
+    (``coeff_perceptual`` 1, a fresh Inception-v4 stem through Mixed_5b,
+    the same weights on both).  Each step starts both from the CPU run's
     state: Adam's first updates move every element by about +-lr, the
     ones whose gradient is at rounding level either way, so free-running
     runs part by ~1% of some weights.  Losses and EMAs agree within
@@ -2435,8 +2483,12 @@ def check_gan_training_against_cpu():
     twice and B2 once a step on CUDA (the fakes of the D update, the G
     update's forward and its backward), never on the CPU."""
     import torch
+    import copy
     from sketchyscenecolorization_torch.config import (BGGanConfig,
                                                        FGGanConfig)
+    from sketchyscenecolorization_torch.models.inception_v4 import \
+        InceptionV4
+    from sketchyscenecolorization_torch.ops.conv import apply_compute_dtype
     from sketchyscenecolorization_torch.parallel import to_device
     from sketchyscenecolorization_torch.train import (
         create_bg_gan_state, create_fg_gan_state, make_bg_gan_train_step,
@@ -2445,19 +2497,36 @@ def check_gan_training_against_cpu():
                      base_channels=4, noise_dim=8, max_iters=100)
     bg = BGGanConfig(batch_size=2, image_size=64, vocab_size=8, max_len=4,
                      ngf=4, ndf=4, multi_residual=False, max_steps=100)
+    fg_perc = dataclasses.replace(fg, coeff_perceptual=1.0)
+    apply_compute_dtype(fg, bg)         # the script builds the models itself
+    inception = InceptionV4("Mixed_5b",
+                            generator=torch.Generator().manual_seed(5))
+
+    def make_fg(cfg, device):
+        return make_fg_gan_train_step(cfg)
+
+    def make_fg_perceptual(cfg, device):
+        return make_fg_gan_train_step(
+            cfg, perceptual=copy.deepcopy(inception).to(device))
+
+    def make_bg(cfg, device):
+        return make_bg_gan_train_step(cfg)
     rng = np.random.RandomState(0)
     batches = [small_gan_batches(rng, fg, bg) for _ in range(GAN_SMALL_STEPS)]
+    fg_lr = {"generator": fg.lr_g, "discriminator": fg.lr_d}
     for kind, cfg, create, make, lr in (
-            ("FG", fg, create_fg_gan_state, make_fg_gan_train_step,
-             {"generator": fg.lr_g, "discriminator": fg.lr_d}),
-            ("BG", bg, create_bg_gan_state, make_bg_gan_train_step,
+            ("FG", fg, create_fg_gan_state, make_fg, fg_lr),
+            ("FG perceptual", fg_perc, create_fg_gan_state,
+             make_fg_perceptual, fg_lr),
+            ("BG", bg, create_bg_gan_state, make_bg,
              {"generator": bg.lr, "discriminator": bg.lr})):
+        t0 = time.perf_counter()
         cpu, gpu = create(cfg, device="cpu"), create(cfg, device="cuda")
-        step_cpu, step_gpu = make(cfg), make(cfg)
+        step_cpu, step_gpu = make(cfg, "cpu"), make(cfg, "cuda")
         loss_err = sn_err = update_err = adam = 0.0
         losses = []
         for i, (fg_args, bg_args) in enumerate(batches):
-            args = fg_args if kind == "FG" else bg_args
+            args = bg_args if kind == "BG" else fg_args
             gpu.load_state_dict(cpu.state_dict())
             reset_counts()
             gpu, m_gpu = step_gpu(gpu, *(to_device(b, "cuda") for b in args))
@@ -2481,8 +2550,8 @@ def check_gan_training_against_cpu():
                                          f"{float(m_gpu[key])} vs CPU "
                                          f"{float(want)}")
                 loss_err = max(loss_err, err)
-            losses.append(float(m_cpu["loss_g" if kind == "FG"
-                                      else "gen_loss"]))
+            losses.append(float(m_cpu["gen_loss" if kind == "BG"
+                                      else "loss_g"]))
             for want, got in zip(cpu.discriminator.buffers(),
                                  gpu.discriminator.buffers()):
                 sn_err = max(sn_err, float((got.cpu() - want).abs().max()))
@@ -2514,7 +2583,8 @@ def check_gan_training_against_cpu():
             f"u max-abs {sn_err:.2e} (tol {GAN_SN_ATOL:.0e}); parameters "
             f"{update_err:.2e} lr where the moment >= {GAN_CLEAR_MU:.0e} "
             f"(tol {GAN_UPDATE_ATOL:.0e}), {adam:.2f} lr at most (Adam bound "
-            f"{GAN_ADAM_BOUND}); B1 2 and B2 1 launches a CUDA step")
+            f"{GAN_ADAM_BOUND}); B1 2 and B2 1 launches a CUDA step; "
+            f"{time.perf_counter() - t0:.1f} s")
 
 
 def write_fg_gan_data(base, n=4, text_len=15):
@@ -2622,7 +2692,8 @@ def gan_cli_run(kind, main, argv_for, harness, make_name):
 
 
 def report_gan_run(kind, records, profiled, counts, shapes, peak, loss_key):
-    """Log a GAN run's step walls, profiled breakdown and launches."""
+    """Log a GAN run's step walls, profiled breakdown and launches; returns
+    (the profiled step's device ms, the median warm step's wall ms)."""
     steps, _ = GAN_RUNS[kind]
     walls = [r[0] for r in records]
     warm = [w for i, w in enumerate(walls)
@@ -2656,6 +2727,7 @@ def report_gan_run(kind, records, profiled, counts, shapes, peak, loss_key):
                     for k, v in sorted(shapes.items(), key=str)))
     for name, ms in sorted(kernels.items(), key=lambda kv: -kv[1])[:6]:
         log(f"    {ms:8.3f} ms  {name[:100]}")
+    return total, median_ms
 
 
 def _moved_generator(kind, cfg, snapshot_root):
@@ -2715,7 +2787,7 @@ def full_width_gan_training():
     if snaps != [6, 8]:
         raise AssertionError(f"FG snapshots {snaps}, expected [6, 8]")
     _moved_generator("fg", fg_cfg, os.path.join(fg_run, "snapshot"))
-    report_gan_run("fg", *fg, "loss_g")
+    runs["fg_device_ms"], _ = report_gan_run("fg", *fg, "loss_g")
     log(f"  FG snapshots at steps {snaps}; train_fg_gan phase "
         f"{time.perf_counter() - t0:.1f} s")
     paths["train_fg_gan"] = fg[2]
@@ -2818,6 +2890,443 @@ def serve_trained_gans(build_session, runs):
         f"cli_bg_gan --mode test wrote {test}; "
         f"{time.perf_counter() - t0:.1f} s")
     return counts
+
+
+# ------------------------------------------------------------ evaluation
+
+EVAL_IMAGES = 4     # synthetic 768^2 val images of the full-width eval
+EVAL_SMALL = 48     # image size of the CUDA-vs-CPU eval
+INCEPTION_BATCH = 8     # inception_v4_class_probs' default batch
+INCEPTION_ITERS = 10
+INCEPTION_REL = 1e-4    # CUDA vs CPU: an endpoint's max-abs error over its
+                        # largest magnitude
+IS_IMAGES = 16      # FG generator outputs scored by the inception scores
+
+
+def eval_matching_run(tmp):
+    """``cli_matching --mode eval`` at the default full-width
+    ``MatchingConfig`` on the training run's newest snapshot
+    (``<tmp>/run``), over a synthetic val split of EVAL_IMAGES 768^2 images
+    x 5 captions with mask AP on (path ``eval_matching``): the wall per
+    image and per caption of ``eval_matching``'s loop (timed apart from the
+    model's build and restore), each image's prediction (one backbone
+    forward and one B1 launch for its captions), B1's launches by shape,
+    peak device memory and the summary lines.  Returns the path's launch
+    counts."""
+    import torch
+    from sketchyscenecolorization_torch import cli_matching, train
+    from sketchyscenecolorization_torch.config import MatchingConfig
+    cfg = MatchingConfig()
+    write_matching_corpus(tmp, cfg.H, EVAL_IMAGES, split="val")
+    run_dir = os.path.join(tmp, "run")
+    argv = ["--mode", "eval", "--data_base_dir", tmp, "--captions_base_dir",
+            tmp, "--seg_data_base_dir", tmp, "--vocab_path",
+            os.path.join(ROOT, "data", "match_vocab.txt"), "--run_dir",
+            run_dir]
+    evaluate, timing = train.eval_matching, {"predict": []}
+
+    def timed_eval(predict_fn, *args, predict_batch_fn=None, **kw):
+        def predict(image, captions):
+            t0 = time.perf_counter()
+            out = predict_batch_fn(image, captions)     # host masks: synced
+            timing["predict"].append((time.perf_counter() - t0,
+                                      len(captions)))
+            return out
+        t0 = time.perf_counter()
+        timing["result"] = evaluate(predict_fn, *args,
+                                    predict_batch_fn=predict, **kw)
+        timing["loop"] = time.perf_counter() - t0
+        return timing["result"]
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                    # path starts
+    train.eval_matching = timed_eval
+    try:
+        with b1_shapes() as shapes:
+            t0 = time.perf_counter()
+            if cli_matching.main(argv) != 0:
+                raise AssertionError("cli_matching --mode eval returned "
+                                     "non-zero")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        train.eval_matching = evaluate
+    counts = read_counts()                            # path ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    result, predicts = timing["result"], timing["predict"]
+    n_caps = sum(n for _, n in predicts)
+    path = os.path.join(run_dir, "eval_results", "deeplab_val_result.txt")
+    with open(path) as f:
+        written = f.read()
+    if (len(predicts) != EVAL_IMAGES or n_caps != 5 * EVAL_IMAGES
+            or result.num_samples != n_caps or result.mean_ap is None
+            or not np.isfinite([result.cum_iou, result.mean_ap]).all()
+            or result.summary() not in written):
+        raise AssertionError(f"eval: {len(predicts)} images, {n_caps} "
+                             f"captions, {result.num_samples} samples, "
+                             f"mAP {result.mean_ap}; the result file holds "
+                             f"{len(written)} bytes")
+    if counts["mlstm_fwd"] != EVAL_IMAGES or \
+            dict(shapes) != {(5, cfg.vf_h * cfg.vf_w, cfg.m_rnn_size):
+                             EVAL_IMAGES}:
+        raise AssertionError(f"eval: B1 launches {counts['mlstm_fwd']}, by "
+                             f"shape {dict(shapes)}; expected one a image at"
+                             f" N = 5")
+    loop = timing["loop"]
+    pred = [w for w, _ in predicts]
+    log(f"path eval_matching: cli_matching --mode eval at {cfg.H}^2 "
+        f"(ResNet-101, m_rnn {cfg.m_rnn_size}), {EVAL_IMAGES} images x 5 "
+        f"captions, mask AP on: command {wall:.3f} s (model build and "
+        f"restore included), eval loop {loop:.3f} s = "
+        f"{loop / EVAL_IMAGES * 1e3:.1f} ms an image, "
+        f"{loop / n_caps * 1e3:.1f} ms a caption; prediction (backbone + B1 "
+        f"on 5 captions + host masks) first {pred[0] * 1e3:.1f} ms, then "
+        f"{', '.join(f'{w * 1e3:.1f}' for w in pred[1:])} ms; the rest of "
+        f"the loop (GT loading on its worker, host metrics and mask AP) "
+        f"{(loop - sum(pred)) / EVAL_IMAGES * 1e3:.1f} ms an image; peak "
+        f"device memory {peak:.2f} GiB; B1 {counts['mlstm_fwd']} launches, "
+        f"by (N, P, H) {dict(shapes)}")
+    for line in result.summary().splitlines():
+        log(f"  {line}")
+    return counts
+
+
+def _up_logits(engine, image_u8, captions):
+    """The matching model's ``up`` logits [M, H, W] of ``predict_masks``."""
+    import torch
+    from sketchyscenecolorization_torch.pipeline.engines import PIXEL_MU
+    image = (image_u8.astype(np.float32) - PIXEL_MU).astype(np.float32)
+    words, lens = engine.encode_texts(captions)
+    with torch.no_grad():
+        visual = engine.model.extract_visual(
+            torch.from_numpy(image[None]).to(engine.device))
+        up = engine.model.apply_fused(
+            visual, torch.from_numpy(words.astype(np.int64)).to(engine.device),
+            torch.from_numpy(lens.astype(np.int64)).to(engine.device)).up
+    return up[..., 0].cpu().numpy()
+
+
+def check_eval_against_cpu():
+    """``eval_matching`` with mask AP at a EVAL_SMALL^2 config on CUDA and
+    on the CPU from the same seeded weights, over a synthetic val split of
+    2 images x 5 captions: every mask equal and the results equal.  A pixel
+    that flips at the 1e-9 threshold is printed with the logits' max-abs
+    difference, and passes only where the CPU logit is within that
+    difference of the threshold (a tie)."""
+    import copy
+    import torch
+    from sketchyscenecolorization_torch.config import MatchingConfig
+    from sketchyscenecolorization_torch.data import matching_dataset as md
+    from sketchyscenecolorization_torch.models.rmi import RMI
+    from sketchyscenecolorization_torch.ops.conv import apply_compute_dtype
+    from sketchyscenecolorization_torch.pipeline.engines import \
+        MatchingEngine
+    from sketchyscenecolorization_torch.text import load_vocab
+    from sketchyscenecolorization_torch.train import eval_matching
+    t0 = time.perf_counter()
+    s = EVAL_SMALL
+    cfg = MatchingConfig(H=s, W=s, vf_h=s // 8, vf_w=s // 8, w_emb_dim=16,
+                         v_emb_dim=16, m_rnn_size=8, w_rnn_size=16)
+    apply_compute_dtype(cfg)            # the script builds the model itself
+    model = RMI(cfg, torch.Generator().manual_seed(4))
+    vocab = load_vocab(os.path.join(ROOT, "data", "match_vocab.txt"))
+    tmp = tempfile.mkdtemp(prefix="smoke_eval_small_")
+    write_matching_corpus(tmp, s, 2, split="val")
+    base = os.path.join(tmp, "val")
+    runs, image_size = [], md.IMAGE_SIZE
+    md.IMAGE_SIZE = s
+    try:
+        for device in ("cuda", "cpu"):
+            engine = MatchingEngine(cfg, copy.deepcopy(model), vocab,
+                                    device=device)
+            record = []
+
+            def predict(image, captions):
+                out = engine.predict_masks(image, captions)
+                record.append((image, list(captions), out))
+                return out
+            reset_counts()
+            result = eval_matching(
+                None, base, os.path.join(tmp, "sentence_instance_val.json"),
+                seg_data_base_dir=base, predict_batch_fn=predict)
+            runs.append((result, record, engine, read_counts()))
+    finally:
+        md.IMAGE_SIZE = image_size
+    (r_gpu, rec_gpu, e_gpu, c_gpu), (r_cpu, rec_cpu, e_cpu, c_cpu) = runs
+    if c_gpu["mlstm_fwd"] != 2 or c_cpu["mlstm_fwd"] != 0:
+        raise AssertionError(f"B1 launches: CUDA {c_gpu['mlstm_fwd']}, CPU "
+                             f"{c_cpu['mlstm_fwd']}; expected 2 and 0")
+    flips, logit_err, n_pixels = 0, 0.0, 0
+    for (image, captions, m_gpu), (_, _, m_cpu) in zip(rec_gpu, rec_cpu):
+        n_pixels += m_cpu.size
+        up_gpu, up_cpu = (_up_logits(e, image, captions)
+                          for e in (e_gpu, e_cpu))
+        err = float(np.abs(up_gpu - up_cpu).max())
+        logit_err = max(logit_err, err)
+        flipped = m_gpu != m_cpu
+        if flipped.any():
+            flips += int(flipped.sum())
+            near = np.abs(up_cpu - e_cpu.score_thresh)[flipped]
+            log(f"  eval CUDA vs CPU: {int(flipped.sum())} mask pixels flip "
+                f"at the threshold; logits max-abs difference {err:.3e}, "
+                f"the flipped pixels' CPU logits within {near.max():.3e} of "
+                f"it")
+            if near.max() > err:
+                raise AssertionError("a mask pixel flipped away from the "
+                                     "threshold")
+    if not flips and (r_gpu.summary() != r_cpu.summary()
+                      or not np.array_equal(r_gpu.map_list, r_cpu.map_list)):
+        raise AssertionError(f"eval results differ:\n{r_gpu.summary()}\n"
+                             f"{r_cpu.summary()}")
+    log(f"small-config eval_matching ({s}^2, 2 images x 5 captions, mask AP "
+        f"on), CUDA vs CPU: {flips} of {n_pixels} mask pixels differ, "
+        f"logits max-abs difference {logit_err:.3e}, results "
+        f"{'equal' if not flips else 'printed'} (overall IoU "
+        f"{r_gpu.cum_iou:.6f}, mAP {r_gpu.mean_ap}); B1 2 launches on CUDA; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if flips:
+        log(f"  CUDA:\n{r_gpu.summary()}\n  CPU:\n{r_cpu.summary()}")
+
+
+def tf32_line():
+    """One BG generator forward at the default full width (768^2, ngf 64,
+    multi_residual, fresh seeded weights) in f32, as the port runs, and
+    with TF32 switched on here for cuDNN and cuBLAS: the output's max-abs
+    difference, both CUDA-event times and both device kernel times of one
+    profiled forward (the host's enqueue is about as long as the forward,
+    so the events alone can hide a faster device), to rank TF32 later."""
+    import torch
+    from sketchyscenecolorization_torch.config import BGGanConfig
+    from sketchyscenecolorization_torch.models import bg_gan
+    from sketchyscenecolorization_torch.ops.conv import apply_compute_dtype
+    cfg = BGGanConfig()
+    apply_compute_dtype(cfg)            # the script builds the model itself
+    gen = bg_gan.build_generator(cfg, torch.Generator().manual_seed(0)) \
+        .cuda().eval()
+    rng = np.random.RandomState(6)
+    s = cfg.image_size
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, s, s, 3))
+                         .astype(np.float32)).cuda()
+    tokens = torch.from_numpy(rng.randint(1, cfg.vocab_size,
+                                          (1, cfg.max_len))).cuda()
+    def forward():
+        return gen(x, tokens)[0]
+
+    def device_ms():
+        return sum(profile_kernels(forward)[2].values())
+    with torch.no_grad():
+        f32_ms = cuda_ms(forward, 5)
+        want, f32_dev = forward(), device_ms()
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32_ms = cuda_ms(forward, 5)
+            got, tf32_dev = forward(), device_ms()
+        finally:
+            apply_compute_dtype(cfg)
+    err = float((got - want).abs().max())
+    log(f"TF32 (switched on here only): BG generator forward at {s}^2, ngf "
+        f"{cfg.ngf}: f32 {f32_ms:.2f} ms, TF32 {tf32_ms:.2f} ms (CUDA events,"
+        f" mean of 5); device kernel time of one profiled forward f32 "
+        f"{f32_dev:.2f} ms, TF32 {tf32_dev:.2f} ms; output max-abs "
+        f"difference {err:.3e} on [-1, 1], "
+        f"{float((got - want).abs().mean()):.3e} mean")
+    del gen
+
+
+def inception_run(gan_runs):
+    """Inception-v4 with its heads (1001 classes, AuxLogits) at 299^2 and
+    batch INCEPTION_BATCH, fresh seeded weights: forward ms (CUDA events),
+    GFLOP/s from the convolutions' and heads' shapes and peak memory;
+    CUDA against the port's CPU path at batch 1, each endpoint's max-abs
+    error over its largest magnitude within INCEPTION_REL; then
+    ``inception_v4_class_probs`` and ``acgan_class_probs`` (on the FG run's
+    restored discriminator) with ``inception_score`` on IS_IMAGES outputs
+    of the FG run's restored generator (path ``inception``, no B kernel)."""
+    import copy
+    import torch
+    from sketchyscenecolorization_torch.config import FGGanConfig
+    from sketchyscenecolorization_torch.data import (preprocess_pair,
+                                                     read_record_shard)
+    from sketchyscenecolorization_torch.evaluation import (
+        acgan_class_probs, inception_score, inception_v4_class_probs)
+    from sketchyscenecolorization_torch.models import inception_v4 as inc
+    from sketchyscenecolorization_torch.ops.conv import apply_compute_dtype
+    from sketchyscenecolorization_torch.train import fg_gan
+    from sketchyscenecolorization_torch.utils.checkpoint import (
+        latest_checkpoint, restore_checkpoint)
+    t0 = time.perf_counter()
+    fg_cfg = FGGanConfig()
+    apply_compute_dtype(fg_cfg)         # the script builds the models itself
+    model = inc.InceptionV4(num_classes=1001,
+                            generator=torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model)
+    model = model.cuda()
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.uniform(-1, 1, (INCEPTION_BATCH, 299, 299, 3))
+                         .astype(np.float32)).cuda()
+    flops = [0.0]
+
+    def count(module, inputs, out):
+        w = module.weights
+        flops[0] += 2.0 * out.numel() * (w.numel() // w.shape[0]
+                                         if w.dim() == 4 else w.shape[0])
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (inc.ConvBN, inc.Dense))]
+    with torch.no_grad():
+        inc.inception_v4(model, x)
+    for hook in hooks:
+        hook.remove()
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(lambda: inc.inception_v4(model, x), INCEPTION_ITERS)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _, wall, kernels = profile_kernels(lambda: inc.inception_v4(model, x))
+    device = sum(kernels.values())
+    conv = sum(v for k, v in kernels.items()
+               if any(w in k.lower() for w in CONV_KERNEL_WORDS))
+    gflop = flops[0] / 1e9
+    log(f"path inception: Inception-v4 with AuxLogits and Logits (1001 "
+        f"classes, {n_params / 1e6:.2f}M parameters) at 299^2, batch "
+        f"{INCEPTION_BATCH}: forward {fwd_ms:.2f} ms (CUDA events, mean of "
+        f"{INCEPTION_ITERS}), {gflop:.1f} GFLOP (convolutions and heads) = "
+        f"{gflop / fwd_ms:.1f} TFLOP/s, {gflop / fwd_ms / F32_FLOPS * 1e12:.1%}"
+        f" of the f32 peak; peak device memory {peak:.2f} GiB "
+        f"({resident:.2f} GiB resident before); one profiled forward: "
+        f"device kernel time {device:.2f} ms (convolutions {conv:.2f} ms, "
+        f"{gflop / conv:.1f} TFLOP/s), wall {wall * 1e3:.1f} ms, device idle "
+        f"{1 - device / (wall * 1e3):.1%}")
+
+    with torch.no_grad():
+        _, got = inc.inception_v4(model, x[:1])
+        _, want = inc.inception_v4(cpu_model, x[:1].cpu())
+    errors = {}
+    for name, w in want.items():
+        rel = float((got[name].cpu() - w).abs().max()) / max(
+            float(w.abs().max()), 1e-30)
+        if not (torch.isfinite(got[name]).all() and rel <= INCEPTION_REL):
+            raise AssertionError(f"Inception CUDA vs CPU at {name}: {rel:.3e}"
+                                 f" of max|CPU| > {INCEPTION_REL} (or "
+                                 "non-finite)")
+        errors[name] = rel
+    log(f"  Inception CUDA vs CPU at batch 1, each endpoint's max-abs error "
+        f"over its largest magnitude (tol {INCEPTION_REL:.0e}): "
+        + ", ".join(f"{k} {v:.1e}" for k, v in errors.items())
+        + f"; activations grow to "
+        f"{float(want['Mixed_7d'].abs().max()):.3e} on random weights")
+    del cpu_model, got, want
+
+    fg_run, fg_data = gan_runs["fg"]
+    gen, disc = fg_gan.build_models(fg_cfg)
+    step, path = latest_checkpoint(os.path.join(fg_run, "snapshot"))
+    saved = restore_checkpoint(path, map_location="cpu")
+    gen.load_state_dict(saved["generator"])
+    disc.load_state_dict(saved["discriminator"])
+    gen, disc = gen.cuda().eval(), disc.cuda()
+    rec = read_record_shard(os.path.join(fg_data, "records", "train",
+                                         "bus.npz"))
+    pairs = [preprocess_pair(rec["cartoons"][i], rec["sketches"][i],
+                             fg_cfg.image_size, fg_cfg.distance_map)
+             for i in range(len(rec["cartoons"]))]
+    idx = [i % len(pairs) for i in range(IS_IMAGES)]
+    sketches = torch.from_numpy(np.stack([pairs[i][1] for i in idx])).cuda()
+    tokens = torch.from_numpy(rec["text_indices"][idx].astype(np.int64)) \
+        .cuda()
+    labels = torch.from_numpy(rec["category_ids"][idx].astype(np.int64)) \
+        .cuda()
+    noise = torch.randn(IS_IMAGES, fg_cfg.noise_dim,
+                        generator=torch.Generator().manual_seed(8)).cuda()
+    with torch.no_grad():
+        fakes = gen(sketches, tokens, labels, noise).cpu().numpy()
+    u_before = [b.clone() for b in disc.buffers()]
+    t1 = time.perf_counter()
+    p_inc = inception_v4_class_probs(model, fakes)
+    inc_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    p_ac = acgan_class_probs(disc, fakes)
+    ac_s = time.perf_counter() - t1
+    scores = {}
+    for label, probs, classes in (("Inception-v4", p_inc, 1001),
+                                  ("ACGAN head", p_ac, fg_cfg.num_classes)):
+        if probs.shape != (IS_IMAGES, classes) or not np.isfinite(
+                probs).all() or np.abs(probs.sum(1) - 1).max() > 1e-4:
+            raise AssertionError(f"{label} posteriors {probs.shape}, sums "
+                                 f"{probs.sum(1)}")
+        scores[label] = inception_score(probs, splits=2)
+        if not 1.0 - 1e-6 <= scores[label][0] <= classes + 1e-6:
+            raise AssertionError(f"{label} inception score {scores[label]}")
+    if not all(torch.equal(a, b) for a, b in zip(u_before, disc.buffers())):
+        raise AssertionError("acgan_class_probs moved the spectral-norm u")
+    log(f"  inception scores of {IS_IMAGES} outputs of the FG run's "
+        f"generator (step {step}, {fg_cfg.image_size}^2): Inception-v4 "
+        f"(random weights) "
+        f"{scores['Inception-v4'][0]:.4f} +- {scores['Inception-v4'][1]:.4f}"
+        f" ({inc_s:.3f} s for inception_v4_class_probs, batch "
+        f"{INCEPTION_BATCH}), ACGAN head of the run's discriminator "
+        f"{scores['ACGAN head'][0]:.4f} +- {scores['ACGAN head'][1]:.4f} "
+        f"({ac_s:.3f} s); the discriminator's u unchanged; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def perceptual_gan_training(gan_runs):
+    """``train_fg_gan`` at the default ``FGGanConfig`` (192^2, batch 2, base
+    64) with ``coeff_perceptual`` 1 and a fresh Inception-v4 stem (through
+    Mixed_5b) on the FG run's synthetic shard: 3 steps, then resumed to 4
+    (path ``train_fg_gan_perceptual``): step walls, one profiled step with
+    its device ms and idle share, Inception's share of the device time
+    (the step's device ms less the plain FG step's, over the step's), peak
+    memory, B1/B2 launches by shape; the snapshots hold no Inception
+    parameter.  Returns the path's launch counts."""
+    import torch
+    from sketchyscenecolorization_torch.config import FGGanConfig
+    from sketchyscenecolorization_torch.data import FGPairedDataset
+    from sketchyscenecolorization_torch.models.inception_v4 import \
+        InceptionV4
+    from sketchyscenecolorization_torch.train import harness
+    from sketchyscenecolorization_torch.utils.checkpoint import (
+        latest_checkpoint, list_checkpoint_steps, restore_checkpoint)
+    t0 = time.perf_counter()
+    cfg = FGGanConfig(coeff_perceptual=1.0)
+    inception = InceptionV4("Mixed_5b",
+                            generator=torch.Generator().manual_seed(5))
+    _, fg_data = gan_runs["fg"]
+    ds = FGPairedDataset([os.path.join(fg_data, "records", "train",
+                                       "bus.npz")], cfg.batch_size,
+                         cfg.image_size, cfg.distance_map, seed=0)
+    run_dir = tempfile.mkdtemp(prefix="smoke_fg_perceptual_")
+    log(f"FG GAN training with the perceptual term (train_fg_gan): "
+        f"{cfg.image_size}^2, batch {cfg.batch_size}, base "
+        f"{cfg.base_channels}, coeff_perceptual {cfg.coeff_perceptual}, "
+        f"Inception-v4 through Mixed_5b (frozen, "
+        f"{sum(p.numel() for p in inception.parameters()) / 1e6:.2f}M "
+        f"parameters) on both images resized to 299^2")
+
+    def main(max_iters):
+        return harness.train_fg_gan(cfg, ds, run_dir, max_iters=max_iters,
+                                    device="cuda", perceptual=inception)
+    rec = gan_cli_run("fg_perceptual", main, lambda steps, resume: steps,
+                      harness, "make_fg_gan_train_step")
+    steps, resumed = GAN_RUNS["fg_perceptual"]
+    snaps = list_checkpoint_steps(os.path.join(run_dir, "snapshot"))
+    saved = restore_checkpoint(latest_checkpoint(os.path.join(
+        run_dir, "snapshot"))[1], map_location="cpu")
+    if snaps != [steps, steps + resumed] or sorted(saved) != [
+            "d_opt", "discriminator", "g_opt", "generator", "step"] or any(
+            "Mixed_5b" in k or "Conv2d_1a" in k for k in saved["generator"]):
+        raise AssertionError(f"perceptual run snapshots {snaps}, keys "
+                             f"{sorted(saved)}")
+    total, median_ms = report_gan_run("fg_perceptual", *rec, "loss_g")
+    plain = gan_runs["fg_device_ms"]
+    log(f"  perceptual step: device {total:.2f} ms against the plain FG "
+        f"step's {plain:.2f} ms: Inception's share of the step's device "
+        f"time {1 - plain / total:.1%} (forward on the real and generated "
+        f"images, backward on the generated); of the median warm wall "
+        f"{median_ms:.1f} ms, {(total - plain) / median_ms:.1%}; snapshots "
+        f"{snaps} without Inception; {time.perf_counter() - t0:.1f} s")
+    return rec[2]
 
 
 def release():
@@ -2933,9 +3442,8 @@ def main() -> int:
                                    "error")):
             log("  nvcc:", line.strip())
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log(f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
+    log(f"before the first build_session (torch's defaults): "
+        f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
 
     fwd = check_kernel(mlstm)
@@ -2953,6 +3461,12 @@ def main() -> int:
     log(f"library call: none for B1-B6 ({NO_LIBRARY}; B5/B6 also attend "
         "over the word-LSTM outputs inside the recurrence)")
     check_against_cpu(build_session)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    log(f"after the first build_session: cudnn.allow_tf32={flags[0]} "
+        f"cuda.matmul.allow_tf32={flags[1]}")
+    if any(flags):
+        raise AssertionError("build_session left TF32 on")
     check_bg_against_cpu(build_session)
     check_serving_ops()
     check_serving_against_cpu(build_session)
@@ -2961,6 +3475,8 @@ def main() -> int:
     paths = {"color": full_size_run(build_session, mlstm)}
     release()
     paths["color_bg"] = full_width_bg(build_session, card)
+    release()
+    tf32_line()
     release()
     stream_paths, session, eligible = full_width_stream(build_session, card)
     paths.update(stream_paths)
@@ -2972,6 +3488,12 @@ def main() -> int:
     del trained
     release()
     paths["infer_matching"] = infer_matching(corpus)
+    release()
+    t0 = time.perf_counter()
+    paths["eval_matching"] = eval_matching_run(corpus)
+    log(f"eval_matching_run: {time.perf_counter() - t0:.1f} s")
+    release()
+    check_eval_against_cpu()
     for variant in VARIANTS:
         release()
         check_against_cpu(build_session, variant)
@@ -2992,6 +3514,10 @@ def main() -> int:
     t0 = time.perf_counter()
     paths["serve_gans"] = serve_trained_gans(build_session, gan_runs)
     log(f"serve_trained_gans: {time.perf_counter() - t0:.1f} s")
+    release()
+    inception_run(gan_runs)
+    release()
+    paths["train_fg_gan_perceptual"] = perceptual_gan_training(gan_runs)
 
     by_kernel = {k: {path: c[k] for path, c in paths.items() if c[k]}
                  for k in kernel_counters()}

@@ -15,10 +15,10 @@ runs the default ``PipelineConfig``: device compositing, compact fetch and
 the device sky gradient.  ``--instructions`` serves a ';'-separated queue
 through ``colorize_stream``.
 
-The matching model is restored from the newest snapshot of the port's
-trainer under ``--match_ckpt_dir`` when there is one; every other model
-starts from fresh parameters seeded by ``--seed``, and a snapshot under
-``--fg_ckpt_dir`` or ``--bg_ckpt_dir`` raises (``pipeline/factory.py``).
+Each model is restored from the newest snapshot of the port's trainers
+under ``--match_ckpt_dir``, ``--fg_ckpt_dir`` and ``--bg_ckpt_dir`` when
+there is one, else starts from fresh parameters seeded by ``--seed``
+(``pipeline/factory.py``).  ``build_session`` sets the f32 policy.
 """
 from __future__ import annotations
 

@@ -45,6 +45,8 @@ def main(argv=None) -> int:
     cfg = BGGanConfig(batch_size=args.batch_size, image_size=args.image_size,
                       vocab_size=args.vocab_size, max_len=args.max_len,
                       lr=args.lr, max_steps=args.max_steps)
+    from .ops.conv import apply_compute_dtype
+    apply_compute_dtype(cfg)
 
     from .data import BGDataset
     from .text import load_vocab

@@ -71,6 +71,8 @@ def _shards(data_base_dir: str, split: str):
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
     cfg = build_config(args)
+    from .ops.conv import apply_compute_dtype
+    apply_compute_dtype(cfg)
 
     if args.mode == "train":
         from .data import FGPairedDataset

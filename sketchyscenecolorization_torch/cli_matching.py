@@ -4,18 +4,25 @@ reference ``Instance_Matching/matching_main.py``):
     python -m sketchyscenecolorization_torch.cli_matching --mode train \\
         --data_base_dir data --captions_base_dir data \\
         --vocab_path data/match_vocab.txt [--device cpu]
+    python -m sketchyscenecolorization_torch.cli_matching --mode eval \\
+        --dataset val [--no_mask_ap] [--device cpu]
     python -m sketchyscenecolorization_torch.cli_matching --mode inference \\
         --dataset val --image_id 9996 --instruction "the bus" [--device cpu]
 
 Training starts from fresh parameters seeded by ``--seed`` and resumes
-from the newest snapshot under ``<run_dir>/snapshots``.  Inference restores
-that snapshot (fresh parameters when there is none), predicts the mask of
-``--instruction`` on ``<data_base_dir>/<dataset>/DRAWING_GT/
-L0_sample<image_id>.png`` at ``--image_size`` and writes its overlay to
-``<run_dir>/visualize/L0_sample<image_id>_pred.png``.  Restoring the
-released backbone (``--pretrained_npz``) is ROADMAP A12 (converters) and
-``--mode eval`` is A11 (evaluation); each raises ``NotImplementedError``,
-and the evaluation's options come with it.
+from the newest snapshot under ``<run_dir>/snapshots``.  Evaluation and
+inference restore that snapshot (fresh parameters when there is none).
+Evaluation scores every caption of
+``<captions_base_dir>/sentence_instance_<dataset>.json`` on
+``<data_base_dir>/<dataset>`` (cumulative IoU, precision@0.5-0.9 and,
+unless ``--no_mask_ap``, the instance mAP over
+``<seg_data_base_dir>/<dataset>/seg_data``) and appends the summary to
+``<run_dir>/eval_results/<backbone>_<dataset>_result.txt``.  Inference
+predicts the mask of ``--instruction`` on ``<data_base_dir>/<dataset>/
+DRAWING_GT/L0_sample<image_id>.png`` at ``--image_size`` and writes its
+overlay to ``<run_dir>/visualize/L0_sample<image_id>_pred.png``.
+Restoring the released backbone (``--pretrained_npz``) is ROADMAP A12
+(converters) and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ def make_parser():
     p.add_argument("--dataset", type=str, default="val", choices=["val", "test"])
     p.add_argument("--data_base_dir", type=str, default="data")
     p.add_argument("--captions_base_dir", type=str, default="data")
+    p.add_argument("--seg_data_base_dir", type=str, default="data")
     p.add_argument("--vocab_path", type=str, default="data/match_vocab.txt")
     p.add_argument("--vocab_size", type=int, default=76)
     p.add_argument("--max_len", type=int, default=15)
@@ -41,6 +49,7 @@ def make_parser():
     p.add_argument("--pretrained_npz", type=str, default="",
                    help="TF-var npz for the pretrained backbone restore")
     p.add_argument("--max_iteration", type=int, default=100000)
+    p.add_argument("--no_mask_ap", action="store_true")
     p.add_argument("--image_id", type=int, default=-1)
     p.add_argument("--instruction", type=str, default="")
     p.add_argument("--image_size", type=int, default=768)
@@ -54,9 +63,6 @@ def make_parser():
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
-    if args.mode == "eval":
-        raise NotImplementedError(
-            "--mode eval (matching evaluation) is ROADMAP item A11")
     if args.pretrained_npz:
         raise NotImplementedError(
             "--pretrained_npz (TF1 converter) is ROADMAP item A12")
@@ -72,9 +78,13 @@ def main(argv=None) -> int:
 
     import torch
     from .models.rmi import RMI
+    from .ops.conv import apply_compute_dtype
     from .text import load_vocab
+    apply_compute_dtype(cfg)
     vocab = load_vocab(args.vocab_path)
     model = RMI(cfg, torch.Generator().manual_seed(args.seed))
+    if args.mode == "eval":
+        return evaluate(args, cfg, model, vocab)
     if args.mode == "inference":
         return inference(args, cfg, model, vocab)
 
@@ -88,16 +98,40 @@ def main(argv=None) -> int:
     return 0
 
 
-def inference(args, cfg: MatchingConfig, model, vocab) -> int:
-    if args.image_id == -1 or not args.instruction:
-        raise SystemExit("--mode inference needs --image_id and --instruction")
+def restored_engine(args, cfg: MatchingConfig, model, vocab):
+    """A ``MatchingEngine`` on ``model`` restored from the newest snapshot
+    under ``<run_dir>/snapshots``, when there is one."""
     from .pipeline.engines import MatchingEngine
     from .pipeline.factory import restore_matching
-    from .train.eval_procedures import matching_inference
     step = restore_matching(model, os.path.join(args.run_dir, "snapshots"))
     if step is not None:
         print(f"restored step {step}")
-    engine = MatchingEngine(cfg, model, vocab, device=args.device)
+    return MatchingEngine(cfg, model, vocab, device=args.device)
+
+
+def evaluate(args, cfg: MatchingConfig, model, vocab) -> int:
+    """JAX ``cli_matching.py:94-106``: the backbone runs once per image
+    (``predict_masks``)."""
+    from .train import eval_matching
+    engine = restored_engine(args, cfg, model, vocab)
+    eval_matching(
+        engine.predict_mask, predict_batch_fn=engine.predict_masks,
+        dataset_base_dir=os.path.join(args.data_base_dir, args.dataset),
+        caption_json_path=os.path.join(
+            args.captions_base_dir, f"sentence_instance_{args.dataset}.json"),
+        seg_data_base_dir=None if args.no_mask_ap else os.path.join(
+            args.seg_data_base_dir, args.dataset),
+        compute_mask_ap=not args.no_mask_ap,
+        result_path=os.path.join(args.run_dir, "eval_results",
+                                 f"{args.backbone}_{args.dataset}_result.txt"))
+    return 0
+
+
+def inference(args, cfg: MatchingConfig, model, vocab) -> int:
+    if args.image_id == -1 or not args.instruction:
+        raise SystemExit("--mode inference needs --image_id and --instruction")
+    from .train.eval_procedures import matching_inference
+    engine = restored_engine(args, cfg, model, vocab)
     sketch_path = os.path.join(args.data_base_dir, args.dataset, "DRAWING_GT",
                                f"L0_sample{args.image_id}.png")
     out = matching_inference(engine, sketch_path, args.instruction,

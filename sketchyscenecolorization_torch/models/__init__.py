@@ -1,1 +1,1 @@
-from . import deeplab, fg_gan, gan_layers, rmi
+from . import deeplab, fg_gan, gan_layers, inception_v4, rmi

@@ -18,6 +18,22 @@ import torch
 import torch.nn.functional as F
 
 
+def apply_compute_dtype(*cfgs) -> None:
+    """Set the conv/matmul precision of the configs' ``compute_dtype``.
+    For "float32", the only value the port takes (bfloat16 is ROADMAP
+    A10), cuDNN convolutions and cuBLAS matmuls run in full f32: torch
+    lets cuDNN use TF32 by default, whose 10-bit mantissa the f32
+    reference does not have.  The flags are process-wide, as the JAX
+    package's scope is for its trace."""
+    for cfg in cfgs:
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype={cfg.compute_dtype!r}: the port computes in "
+                "float32 only; bfloat16 is ROADMAP item A10")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def same_pads(size: int, kernel: int, stride: int, rate: int = 1
               ) -> Tuple[int, int]:
     """(before, after) TF SAME padding of one spatial dim.  The dilated

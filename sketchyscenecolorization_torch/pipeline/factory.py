@@ -24,6 +24,7 @@ import torch
 from ..config import FrameworkConfig
 from ..models import bg_gan, fg_gan
 from ..models.rmi import RMI
+from ..ops.conv import apply_compute_dtype
 from ..text import load_vocab
 from ..utils.checkpoint import STATE_FILE, latest_checkpoint, restore_checkpoint
 from .engines import BGColorizeEngine, FGColorizeEngine, MatchingEngine
@@ -90,6 +91,7 @@ def build_session(cfg: FrameworkConfig, seed: int = 0,
                   device="cuda") -> ColorizationSession:
     """Matching, FG and BG engines on ``device``, each model from its
     newest snapshot when there is one, else fresh."""
+    apply_compute_dtype(cfg.matching, cfg.fg_gan, cfg.bg_gan)
     m_vocab = (_load_vocab_or_none(cfg.pipeline.match_vocab_path)
                or _placeholder_vocab(cfg.matching.vocab_size))
     f_vocab = (_load_vocab_or_none(cfg.pipeline.fg_vocab_path)

@@ -1,5 +1,6 @@
 """Training of the port: matching, the FG GAN and the BG GAN, with their
-losses, schedules, optimizer arithmetic, NaN watchdog and harnesses."""
+losses, schedules, optimizer arithmetic, NaN watchdog and harnesses, and
+the matching evaluation (``eval_matching``)."""
 from .losses import (
     acgan_focal_loss, bg_discrim_loss, bg_gan_losses, dragan_losses,
     fc_weight_decay_loss, l2_regularization_loss, masked_l1_loss,
@@ -16,4 +17,5 @@ from .fg_gan import (FGGanTrainState, create_fg_gan_state, fg_gan_draws,
 from .bg_gan import (BGGanTrainState, create_bg_gan_state,
                      make_bg_gan_train_step)
 from .watchdog import NaNWatchdog, run_with_nan_restart
-from .harness import train_bg_gan, train_fg_gan, train_matching
+from .harness import (eval_matching, train_bg_gan, train_fg_gan,
+                      train_matching)

@@ -4,10 +4,12 @@
 ``matching_main.py:420-488``).
 
 The PNG-dump loops the reference uses in place of an automated test suite;
-PIL writes RGB.  The FG loops draw each item's noise row from a
-``torch.Generator`` seeded by ``seed`` (JAX splits a ``PRNGKey``, so the
-outputs differ from JAX's by the noise).  The evaluation metrics and
-``eval_matching`` are ROADMAP item A11.
+PIL writes RGB.  The FG loops give each item one noise row: by default
+from a ``torch.Generator`` seeded by ``seed``; given ``noise`` [items,
+noise_dim], row k goes to the k-th item, so a caller can feed the rows
+that JAX draws from its ``PRNGKey`` chain (JAX
+``train/eval_procedures.py:47-56,98,163-185``) and get JAX's images.  The
+matching evaluation is ``train/harness.py:eval_matching``.
 """
 from __future__ import annotations
 
@@ -32,11 +34,18 @@ def _to_uint8(x: np.ndarray) -> np.ndarray:
     return (((x + 1.0) / 2.0) * 255.0).astype(np.uint8)
 
 
-def _noise_source(cfg: FGGanConfig, seed: int):
-    """k -> [k, noise_dim] normal rows from one generator seeded by
-    ``seed``."""
+def _noise_rows(cfg: FGGanConfig, seed: int,
+                noise: Optional[np.ndarray] = None):
+    """The items' noise rows in order, each [1, noise_dim]: the rows of
+    ``noise`` when it is given, else normal rows from one generator
+    seeded by ``seed``."""
+    if noise is not None:
+        for row in np.array(noise, np.float32):
+            yield row[None]
+        raise ValueError("more items than rows of noise")
     rng = torch.Generator().manual_seed(seed)
-    return lambda k: torch.randn(k, cfg.noise_dim, generator=rng).numpy()
+    while True:
+        yield torch.randn(1, cfg.noise_dim, generator=rng).numpy()
 
 
 def _generate(gen, device, sketch: np.ndarray, tokens, class_id: int,
@@ -54,12 +63,14 @@ def _generate(gen, device, sketch: np.ndarray, tokens, class_id: int,
 
 def fg_validation(cfg: FGGanConfig, gen, shard_paths: Sequence[str],
                   results_dir: str, seed: int = 0,
-                  max_items: Optional[int] = None, device="cuda") -> int:
+                  max_items: Optional[int] = None, device="cuda",
+                  noise: Optional[np.ndarray] = None) -> int:
     """Dump (input, output, target) PNG triplets over record shards
-    (``main_procedure.validation``); ``gen`` is the FG generator.  Returns
-    the number of items written."""
+    (``main_procedure.validation``); ``gen`` is the FG generator,
+    ``noise`` the items' rows (module docstring).  Returns the number of
+    items written."""
     gen = gen.to(device).eval()
-    noise = _noise_source(cfg, seed)
+    rows = _noise_rows(cfg, seed, noise)
     out_dir = os.path.join(results_dir,
                            "with_text" if cfg.lstm_hybrid else "without_text")
     os.makedirs(out_dir, exist_ok=True)
@@ -72,7 +83,7 @@ def fg_validation(cfg: FGGanConfig, gen, shard_paths: Sequence[str],
                                       cfg.image_size, cfg.distance_map)
             out = _generate(gen, device, sk,
                             rec["text_indices"][i].astype(np.int64),
-                            int(rec["category_ids"][i]), noise(1))
+                            int(rec["category_ids"][i]), next(rows))
             stem = f"{category}_{str(rec['names'][i])[:-4]}"
             Image.fromarray(_to_uint8(out)).save(
                 os.path.join(out_dir, stem + "_output.png"))
@@ -99,10 +110,11 @@ def _load_fg_sketch(path: str, size: int, category: str) -> np.ndarray:
 def fg_inference(cfg: FGGanConfig, gen, sketch_path: str, category: str,
                  categories: Sequence[str], instruction: str,
                  vocab: Dict[str, int], results_dir: str, seed: int = 0,
-                 device="cuda") -> str:
+                 device="cuda", noise: Optional[np.ndarray] = None) -> str:
     """Single wild-image colorization (``main_procedure.inference``):
     resize+pad, [-1, 1], generator forward, PNG.  An unknown category falls
-    back to ``categories[2]``, as in the reference."""
+    back to ``categories[2]``, as in the reference.  ``noise``: its one
+    row [1, noise_dim] (JAX draws ``normal(PRNGKey(seed))``)."""
     gen = gen.to(device).eval()
     os.makedirs(results_dir, exist_ok=True)
     if category not in categories:
@@ -111,7 +123,7 @@ def fg_inference(cfg: FGGanConfig, gen, sketch_path: str, category: str,
     x = sketch.astype(np.float32) / 255.0 * 2.0 - 1.0
     tokens = colorization_encode(instruction, vocab, cfg.max_len)
     out = _generate(gen, device, x, tokens, categories.index(category),
-                    _noise_source(cfg, seed)(1))
+                    next(_noise_rows(cfg, seed, noise)))
     out_path = os.path.join(
         results_dir, os.path.basename(sketch_path)[:-4] + "_output.png")
     Image.fromarray(_to_uint8(out)).save(out_path)
@@ -155,13 +167,15 @@ def bg_test(cfg: BGGanConfig, engine, dataset, results_dir: str,
 
 def fg_test(cfg: FGGanConfig, gen, data_base_dir: str, results_dir: str,
             vocab: Dict[str, int], seed: int = 0,
-            max_items: Optional[int] = None, device="cuda") -> int:
+            max_items: Optional[int] = None, device="cuda",
+            noise: Optional[np.ndarray] = None) -> int:
     """FG test mode (``main_procedure.test`` :361-492): per category,
     iterate ``captions/<cat>/test.json``, load
     ``images/<cat>/sketch/<key>``, resize+pad, thicken house and road
-    drawings, encode the caption, forward, save the output and input."""
+    drawings, encode the caption, forward, save the output and input;
+    ``noise`` the items' rows (module docstring)."""
     gen = gen.to(device).eval()
-    noise = _noise_source(cfg, seed)
+    rows = _noise_rows(cfg, seed, noise)
     os.makedirs(results_dir, exist_ok=True)
     cap_base = os.path.join(data_base_dir, "captions")
     categories = sorted(d for d in os.listdir(cap_base)
@@ -178,7 +192,7 @@ def fg_test(cfg: FGGanConfig, gen, data_base_dir: str, results_dir: str,
                 sketch = thicken_drawings(sketch)
             x = sketch.astype(np.float32) / 255.0 * 2.0 - 1.0
             tokens = colorization_encode(e["color_text"], vocab, cfg.max_len)
-            out = _generate(gen, device, x, tokens, class_id, noise(1))
+            out = _generate(gen, device, x, tokens, class_id, next(rows))
             stem = f"{cate}_{e['key'][:-4]}"
             Image.fromarray(_to_uint8(out)).save(
                 os.path.join(results_dir, stem + "_output.png"))

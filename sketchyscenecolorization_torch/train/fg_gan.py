@@ -8,8 +8,11 @@ JAX step:
 - the loss menu of ``graph_single.py:515-521``: with spectral norm the
   WGAN-SN softplus loss, else WGAN-GP (``wgan``) or the DRAGAN local GP,
   with the reference's clipping (global 50/100, per tensor 5/10); the
-  ACGAN focal term unless ``proj_d``; the generator adds 100 x smooth-L1
-  and both add the dense layers' weight decay;
+  ACGAN focal term unless ``proj_d``; the generator adds 100 x smooth-L1,
+  and, given a perceptual module and ``coeff_perceptual > 0``, that
+  coefficient x the Inception-v4 perceptual loss of its fakes against the
+  real images (JAX ``train/fg_gan.py:223-226``); both add the dense
+  layers' weight decay;
 - the D updates differentiate only D: their fakes come from the generator
   under ``torch.no_grad``;
 - spectral norm: every D pass of the D updates reads the stored u and
@@ -40,6 +43,7 @@ from ..config import FGGanConfig
 from ..models.fg_gan import (MRUDiscriminator, MRUGenerator,
                              build_discriminator, build_generator)
 from ..models.gan_layers import commit_sn
+from ..models.inception_v4 import InceptionV4, perceptual_loss
 from .losses import (acgan_focal_loss, dragan_losses, fc_weight_decay_loss,
                      smooth_l1, wgan_gp_losses, wgan_sn_losses)
 from .optim import (AdamState, adam_update, clip_by_global_norm,
@@ -127,9 +131,15 @@ def _optimize(params, grads, opt: AdamState, base_lr: float, per_step: int,
 
 
 def make_fg_gan_train_step(cfg: FGGanConfig, seed: int = 0,
-                           perceptual_params=None):
+                           perceptual: Optional[InceptionV4] = None):
     """Returns ``step(state, batch_d, batch_g, draws=None) -> (state,
     metrics)``.
+
+    ``perceptual`` (an ``InceptionV4`` through at least ``Mixed_5b``, on
+    the models' device) adds the perceptual term when
+    ``cfg.coeff_perceptual > 0``.  It is frozen: its parameters take no
+    gradient and no Adam moments and are not part of the state, while the
+    gradient flows through it to the generator.
 
     Each batch: tensors on the models' device: images [B,S,S,3] in
     [-1,1], sketches [B,S,S,3], images_d [B,S,S,3], class_id [B],
@@ -137,9 +147,10 @@ def make_fg_gan_train_step(cfg: FGGanConfig, seed: int = 0,
     ``fg_gan_draws`` gives them (default: drawn from ``seed`` and the
     state's step).  Metrics are 0-d tensors: loss_d (of the last D
     update), loss_g, recon_l1 and the NaN-watchdog flag ``nan``."""
-    if cfg.coeff_perceptual > 0 and perceptual_params is not None:
-        raise NotImplementedError(
-            "the inception-v4 perceptual loss is ROADMAP item A11")
+    if perceptual is not None and cfg.coeff_perceptual > 0:
+        perceptual.requires_grad_(False)
+    else:
+        perceptual = None
     n_d = max(cfg.disc_steps, 1)
     max_iters = cfg.max_iters
 
@@ -190,6 +201,9 @@ def make_fg_gan_train_step(cfg: FGGanConfig, seed: int = 0,
         recon = smooth_l1(fakes, batch["images"])
         loss_g = loss_g + cfg.coeff_l1 * recon + fc_weight_decay_loss(
             dict(gen.named_parameters()))
+        if perceptual is not None:
+            loss_g = loss_g + cfg.coeff_perceptual * perceptual_loss(
+                perceptual, batch["images"], fakes)
         return loss_g, recon
 
     def step(state: FGGanTrainState, batch_d, batch_g,

@@ -1,5 +1,6 @@
-"""Training harnesses (``sketchyscenecolorization_tpu/train/harness.py``):
-matching (reference ``matching_main.py:81-241``), the FG GAN
+"""Training and evaluation harnesses
+(``sketchyscenecolorization_tpu/train/harness.py``): matching (reference
+``matching_main.py:81-241``) and its evaluation (``:244-417``), the FG GAN
 (``obj_colorization_main.py`` + ``obj_lib/main_procedure.py:62-242``) and
 the BG GAN (``bg_colorization_main.py:894-975``).
 
@@ -13,19 +14,25 @@ newest snapshot.  The JAX harness's optional profiler window is left out;
 """
 from __future__ import annotations
 
+import json
 import os
-from typing import Optional
+import random
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..config import BGGanConfig, FGGanConfig, MatchingConfig
 from ..data.bg_dataset import BGDataset
 from ..data.fg_records import FGPairedDataset
-from ..data.matching_dataset import MatchingTrainDataset
+from ..data.matching_dataset import MatchingTrainDataset, load_data_gt
+from ..evaluation import MatchingEvaluator, SegEvalResult
 from ..models.rmi import RMI
+from ..ops.conv import apply_compute_dtype
 from ..parallel import BackgroundGenerator, prefetch_to_device
 from ..utils.checkpoint import (latest_checkpoint, restore_checkpoint,
                                 save_checkpoint)
+from ..text import augment_caption_with_attr
 from ..utils.logging import (JsonlMetricWriter, LossEMA, ThroughputMeter,
                              count_params)
 from .bg_gan import (BGGanTrainState, LOSS_KEYS, create_bg_gan_state,
@@ -44,6 +51,7 @@ def train_matching(cfg: MatchingConfig, dataset: MatchingTrainDataset,
     resuming from the newest snapshot under ``<run_dir>/snapshots``; loss
     EMA(0.99) printed every ``log_every`` steps; snapshots every
     ``cfg.snapshot_interval`` steps and at the end (10 kept)."""
+    apply_compute_dtype(cfg)
     max_iters = max_iters or cfg.max_iters
     ckpt_dir = os.path.join(run_dir, "snapshots")
     state = create_matching_state(model.to(device), cfg)
@@ -85,6 +93,81 @@ def train_matching(cfg: MatchingConfig, dataset: MatchingTrainDataset,
     return state
 
 
+def eval_matching(predict_fn: Optional[Callable[[np.ndarray, str],
+                                                np.ndarray]],
+                  dataset_base_dir: str, caption_json_path: str,
+                  seg_data_base_dir: Optional[str] = None,
+                  compute_mask_ap: bool = True,
+                  result_path: Optional[str] = None,
+                  augment: bool = True,
+                  max_samples: Optional[int] = None,
+                  predict_batch_fn: Optional[
+                      Callable[[np.ndarray, list], np.ndarray]] = None
+                  ) -> SegEvalResult:
+    """``matching_main.test`` (:244-417; JAX ``train/harness.py:118``):
+    cumulative IoU, precision@X and the instance mAP@[0.5:0.95] over a
+    split, printed and, with ``result_path``, appended to that file.
+
+    ``predict_fn(image_uint8, caption) -> binary [H, W] mask`` (a
+    ``MatchingEngine.predict_mask`` bound method), or
+    ``predict_batch_fn(image, captions) -> [M, H, W]``
+    (``MatchingEngine.predict_masks``, equal to M single calls), with which
+    the backbone runs once per image.  The GT loads on one background
+    worker, so the images, and with them the draws of the caption
+    augmentation (``random.Random(0)``), come in the JAX order."""
+    with open(caption_json_path) as f:
+        json_data = json.load(f)
+    evaluator = MatchingEvaluator(compute_mask_ap=compute_mask_ap)
+    rng = random.Random(0)
+
+    def load(i):
+        entry = json_data[i]
+        return entry, load_data_gt(dataset_base_dir, entry["key"])
+
+    gen = BackgroundGenerator(load, num_steps=len(json_data), num_workers=1)
+    done = 0
+    try:
+        for entry, (sketch, _, _, gt_masks) in gen:
+            img_idx = entry["key"]
+            sketch_u8 = sketch.astype(np.uint8)
+            seg_npz = (os.path.join(seg_data_base_dir, "seg_data",
+                                    f"{img_idx}_datas.npz")
+                       if seg_data_base_dir else None)
+            items = list(entry["sen_instIdx_map"].items())
+            if max_samples:
+                items = items[:max(0, max_samples - done)]
+            captions = [augment_caption_with_attr(c, rng) if augment else c
+                        for c, _ in items]
+            all_predicts = (predict_batch_fn(sketch_u8, captions)
+                            if predict_batch_fn is not None and captions
+                            else None)
+            for k, (_, inst_indices) in enumerate(items):
+                target = np.zeros(gt_masks.shape[:2], np.int32)
+                cap_gt = np.zeros((*gt_masks.shape[:2], len(inst_indices)),
+                                  np.int32)
+                for t_i, inst_idx in enumerate(inst_indices):
+                    target = np.logical_or(target, gt_masks[:, :, inst_idx])
+                    cap_gt[:, :, t_i] = gt_masks[:, :, inst_idx]
+                predicts = (all_predicts[k] if all_predicts is not None
+                            else predict_fn(sketch_u8, captions[k]))
+                evaluator.add(predicts, target,
+                              cap_gt if compute_mask_ap and seg_npz else None,
+                              seg_npz)
+                done += 1
+            if max_samples and done >= max_samples:
+                break
+    finally:
+        gen.close()
+
+    result = evaluator.result()
+    print(result.summary())
+    if result_path:
+        os.makedirs(os.path.dirname(result_path) or ".", exist_ok=True)
+        with open(result_path, "a") as f:
+            f.write(result.summary() + "\n")
+    return result
+
+
 def _resume(state, ckpt_dir: str, device) -> int:
     found = latest_checkpoint(ckpt_dir)
     if found is not None:
@@ -99,18 +182,24 @@ def _resume(state, ckpt_dir: str, device) -> int:
 
 def train_fg_gan(cfg: FGGanConfig, dataset: FGPairedDataset, run_dir: str,
                  seed: int = 0, log_every: int = 100,
-                 max_iters: Optional[int] = None, device="cuda") -> int:
+                 max_iters: Optional[int] = None, device="cuda",
+                 perceptual=None) -> int:
     """One FG GAN training launch (``main_procedure.train`` :62-242) up to
     ``max_iters`` (default ``cfg.max_iters``), resuming from the newest
     snapshot under ``<run_dir>/snapshot``; the D and G batches come from
     two independent streams, like the reference's two queues; snapshots
     every ``cfg.snapshot_interval`` steps and at the end (100 kept).
-    Returns 0 on completion, -1 on a NaN abort."""
+    ``perceptual`` is the frozen Inception-v4 of the perceptual term
+    (``make_fg_gan_train_step``), moved to ``device``; snapshots do not
+    hold it.  Returns 0 on completion, -1 on a NaN abort."""
+    apply_compute_dtype(cfg)
     max_iters = max_iters or cfg.max_iters
     ckpt_dir = os.path.join(run_dir, "snapshot")
     state = create_fg_gan_state(cfg, seed, device)
     start = _resume(state, ckpt_dir, device)
-    step_fn = make_fg_gan_train_step(cfg, seed=seed + 1)
+    step_fn = make_fg_gan_train_step(
+        cfg, seed=seed + 1,
+        perceptual=None if perceptual is None else perceptual.to(device))
     writer = JsonlMetricWriter(os.path.join(run_dir, "metrics.jsonl"))
     meter = ThroughputMeter(max_iters)
     watchdog = NaNWatchdog()
@@ -153,6 +242,7 @@ def train_bg_gan(cfg: BGGanConfig, dataset: BGDataset, run_dir: str,
     ``<run_dir>/snapshot``; the loss EMAs printed every ``progress_every``
     steps; snapshots every ``cfg.snapshot_interval`` steps and at the end
     (10 kept)."""
+    apply_compute_dtype(cfg)
     max_steps = max_steps or cfg.max_steps
     ckpt_dir = os.path.join(run_dir, "snapshot")
     state = create_bg_gan_state(cfg, seed, device)

@@ -2,9 +2,10 @@
 modules.
 
 The port's modules name their submodules and parameters after the JAX
-trees' keys: the functional dicts of ``models/deeplab.py`` and
-``models/rmi.py:84-127``, and the flax ``params`` trees of ``MRUGenerator``
-and the BG generators.  A leaf at ``a/b/c`` in a tree is the entry
+trees' keys: the functional dicts of ``models/deeplab.py``,
+``models/rmi.py:84-127`` and ``models/inception_v4.py`` (the slim scope
+paths; the heads' 2-D ``weights`` are ``[fan_in, n]`` on both sides), and
+the flax ``params`` trees of ``MRUGenerator`` and the BG generators.  A leaf at ``a/b/c`` in a tree is the entry
 ``a.b.c`` of the module's ``state_dict``.  Every 4-D leaf is a conv kernel,
 HWIO in JAX.  Here it is OIHW, unless the module that owns it names
 another layout in a ``FROM_HWIO`` attribute (the transposed conv's

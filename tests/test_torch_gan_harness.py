@@ -10,7 +10,10 @@ on the CPU at small sizes:
   ``cli_bg_gan`` (train, test) with ``--device cpu``, at narrow widths;
 - ``build_session`` restoring both generators from the port's snapshots,
   then serving a BG and a FG command; an orbax step directory raises
-  (ROADMAP A12)."""
+  (ROADMAP A12);
+- every entry point (``build_session``, the four CLIs' ``main`` with
+  ``--device cpu`` at narrow widths, the three trainers) turns TF32 off
+  for cuDNN and cuBLAS, with both flags on before it."""
 import dataclasses
 import functools
 import json
@@ -31,6 +34,7 @@ from sketchyscenecolorization_torch.train import train_bg_gan, train_fg_gan
 from sketchyscenecolorization_torch.utils.checkpoint import (
     latest_checkpoint, list_checkpoint_steps, restore_checkpoint)
 from test_pipeline import small_config, write_fixtures
+from test_torch_session import port_config
 from test_torch_train_fg_gan import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -298,3 +302,121 @@ def test_session_serves_trained_generators(tmp_path):
     os.makedirs(os.path.join(fg_ckpt, "step_9"))          # orbax-style
     with pytest.raises(NotImplementedError, match="A12"):
         build_session(cfg, seed=0, device="cpu")
+
+
+# ------------------------------------------------ the f32 policy (C3)
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 flags on before the test (cuDNN's is on by default in
+    torch), restored after it."""
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def _run_build_session(tmp_path, monkeypatch):
+    write_fixtures(str(tmp_path / "examples"))
+    build_session(port_config(small_config(tmp_path)), device="cpu")
+
+
+def _run_cli(tmp_path, monkeypatch):
+    """``cli.main`` at the fixtures' 64^2 widths: one BG command."""
+    from sketchyscenecolorization_torch import cli
+    write_fixtures(str(tmp_path / "examples"))
+    monkeypatch.setattr(cli, "FrameworkConfig",
+                        lambda: port_config(small_config(tmp_path)))
+    monkeypatch.setattr(cli, "PipelineConfig", functools.partial(
+        tconfig.PipelineConfig, image_size=64, instance_size=64))
+    empty = ["--match_ckpt_dir", "", "--fg_ckpt_dir", "", "--bg_ckpt_dir", "",
+             "--match_vocab_path", "", "--fg_vocab_path", "",
+             "--bg_vocab_path", ""]
+    assert cli.main(["--image_id", "7", "--instruction", "the sky is blue",
+                     "--data_base_dir", str(tmp_path / "examples"),
+                     "--results_base_dir", str(tmp_path / "outputs"),
+                     "--device", "cpu"] + empty) == 0
+
+
+def _run_cli_matching(tmp_path, monkeypatch):
+    from sketchyscenecolorization_torch import cli_matching
+    from sketchyscenecolorization_torch.data import matching_dataset as md
+    from test_torch_evaluation import write_val_split
+    monkeypatch.setattr(md, "IMAGE_SIZE", md.IMAGE_SIZE)        # restored
+    write_val_split(str(tmp_path))
+    assert cli_matching.main([
+        "--mode", "eval", "--no_mask_ap", "--data_base_dir", str(tmp_path),
+        "--captions_base_dir", str(tmp_path), "--vocab_path",
+        os.path.join(ROOT, "data", "match_vocab.txt"), "--run_dir",
+        str(tmp_path / "run"), "--image_size", "48", "--model_scale",
+        "0.016", "--device", "cpu"]) == 0
+
+
+def _run_cli_fg_gan(tmp_path, monkeypatch):
+    monkeypatch.setattr(cli_fg_gan, "FGGanConfig", functools.partial(
+        tconfig.FGGanConfig, base_channels=4, noise_dim=8))
+    write_fg_data(str(tmp_path / "data"), n=1)
+    assert cli_fg_gan.main(["--mode", "val", "--resume_from",
+                            str(tmp_path / "run"), "--data_base_dir",
+                            str(tmp_path / "data"), "--small_img", "1",
+                            "--device", "cpu"]) == 0
+
+
+def _run_cli_bg_gan(tmp_path, monkeypatch):
+    monkeypatch.setattr(cli_bg_gan, "BGGanConfig", functools.partial(
+        tconfig.BGGanConfig, ngf=4, ndf=4, multi_residual=False))
+    write_bg_data(str(tmp_path / "data"), 32, splits=("test",), n=1)
+    assert cli_bg_gan.main(["--mode", "test", "--data_base_dir",
+                            str(tmp_path / "data"), "--run_dir",
+                            str(tmp_path / "run"), "--image_size", "32",
+                            "--device", "cpu"]) == 0
+
+
+def _run_train_matching(tmp_path, monkeypatch):
+    from sketchyscenecolorization_torch.data import matching_dataset as md
+    from sketchyscenecolorization_torch.models.rmi import RMI
+    from sketchyscenecolorization_torch.train import train_matching
+    from test_data_and_harness import _write_matching_corpus
+    from test_torch_evaluation import CLI_KW
+    monkeypatch.setattr(md, "IMAGE_SIZE", 48)
+    base, caps = _write_matching_corpus(tmp_path)
+    cfg = tconfig.MatchingConfig(**CLI_KW)
+    ds = tdata.MatchingTrainDataset(
+        base, caps, load_vocab(os.path.join(ROOT, "data", "match_vocab.txt")),
+        max_len=cfg.max_len)
+    train_matching(cfg, ds, RMI(cfg), str(tmp_path / "run"), max_iters=1,
+                   device="cpu")
+
+
+def _run_train_fg_gan(tmp_path, monkeypatch):
+    shards = write_fg_data(str(tmp_path / "data"), n=1)
+    ds = tdata.FGPairedDataset(shards, FG_TINY.batch_size, FG_TINY.image_size)
+    assert train_fg_gan(FG_TINY, ds, str(tmp_path / "run"), max_iters=1,
+                        device="cpu") == 0
+
+
+def _run_train_bg_gan(tmp_path, monkeypatch):
+    write_bg_data(str(tmp_path / "data"), 32, splits=("train",), n=1)
+    train_bg_gan(BG_TINY, _bg_dataset(tdata, str(tmp_path / "data"), 32),
+                 str(tmp_path / "run"), max_steps=1, device="cpu")
+
+
+ENTRY_POINTS = {"build_session": _run_build_session, "cli": _run_cli,
+                "cli_matching": _run_cli_matching,
+                "cli_fg_gan": _run_cli_fg_gan, "cli_bg_gan": _run_cli_bg_gan,
+                "train_matching": _run_train_matching,
+                "train_fg_gan": _run_train_fg_gan,
+                "train_bg_gan": _run_train_bg_gan}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_run_in_f32(entry, tmp_path, monkeypatch, tf32_on):
+    """With no flag set by the caller, every entry point turns TF32 off
+    for cuDNN convolutions and cuBLAS matmuls (``ops/conv.py:
+    apply_compute_dtype``), as the f32 reference computes."""
+    ENTRY_POINTS[entry](tmp_path, monkeypatch)
+    assert not torch.backends.cudnn.allow_tf32
+    assert not torch.backends.cuda.matmul.allow_tf32

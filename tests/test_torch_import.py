@@ -5,7 +5,8 @@ builds a small session at the default ``PipelineConfig`` (device
 compositing on) and runs one BG and one FG command on the synthetic
 fixtures, takes one matching, one FG GAN and one BG GAN train step, runs
 the word-attention and
-RecurAttn fusions once, and ``python -m sketchyscenecolorization_torch
+RecurAttn fusions once, the Inception-v4 perceptual loss and the
+evaluation's metrics, and ``python -m sketchyscenecolorization_torch
 --help`` runs.  Its own copies of the JAX package's jax-free modules
 (``config``, ``text``, ``data``) agree with the originals."""
 import dataclasses
@@ -39,6 +40,8 @@ SCRIPT = textwrap.dedent("""
     import sketchyscenecolorization_torch.data.bg_dataset
     import sketchyscenecolorization_torch.data.fg_records
     import sketchyscenecolorization_torch.data.im_ops
+    import sketchyscenecolorization_torch.evaluation
+    import sketchyscenecolorization_torch.models.inception_v4
     import sketchyscenecolorization_torch.train.eval_procedures
     import sketchyscenecolorization_torch.models.bg_gan
     import sketchyscenecolorization_torch.ops.recur_attn
@@ -113,6 +116,17 @@ SCRIPT = textwrap.dedent("""
             up = RMI(MatchingConfig(**kw))(batch["image"], batch["words"].long(),
                                            batch["seq_len"].long()).up
         assert up.shape == (1, 32, 32, 1) and torch.isfinite(up).all()
+    from sketchyscenecolorization_torch.evaluation import (
+        MatchingEvaluator, inception_score)
+    from sketchyscenecolorization_torch.models.inception_v4 import (
+        InceptionV4, perceptual_loss)
+    with torch.no_grad():
+        loss = perceptual_loss(InceptionV4("Mixed_5b"), img[:1], -img[:1])
+    assert float(loss) > 0
+    evaluator = MatchingEvaluator(compute_mask_ap=False)
+    evaluator.add(np.ones((4, 4)), np.ones((4, 4)))
+    assert evaluator.result().cum_iou == 1.0
+    assert inception_score(np.full((4, 3), 1 / 3), splits=1)[0] == 1.0
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "sketchyscenecolorization_tpu")
@@ -209,3 +223,5 @@ def test_entry_points_default_to_the_card():
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     for mod in (cli, cli_matching, cli_fg_gan, cli_bg_gan):
         assert mod.make_parser().get_default("device") == "cuda"
+    assert cli_matching.make_parser().parse_args(
+        ["--mode", "eval"]).device == "cuda"

@@ -146,8 +146,9 @@ def test_cli_matching_inference_writes_prediction(trained, capsys):
     want = t_viz.semantic_overlay(sketch, engine.predict_mask(sketch,
                                                               "the bus"))
     np.testing.assert_array_equal(np.array(Image.open(out)), want)
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli_matching.main(["--mode", "eval", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A12"):
+        cli_matching.main(["--mode", "inference", "--pretrained_npz",
+                           "tf_vars.npz", "--device", "cpu"])
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,7 @@ Also the harness (synthetic corpus, snapshots, resume; mirrors
 train`` for 2 steps at 48x48 with ``--device cpu``."""
 import json
 import os
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -248,6 +249,12 @@ def test_cli_matching_trains_two_steps(tmp_path, monkeypatch):
     assert cli_matching.main(args + ["--max_iteration", "2"]) == 0
     assert latest_checkpoint(str(tmp_path / "run" / "snapshots"))[0] == 2
     assert md.IMAGE_SIZE == 48
-    with pytest.raises(NotImplementedError, match="A11"):
-        cli_matching.main(["--mode", "eval", "--device", "cpu"])
+    # the run evaluates on a val split (here a copy of the train split)
+    shutil.copytree(tmp_path / "train", tmp_path / "val")
+    shutil.copy(tmp_path / "sentence_instance_train.json",
+                tmp_path / "sentence_instance_val.json")
+    assert cli_matching.main(["--mode", "eval", "--no_mask_ap"]
+                             + args[2:]) == 0
+    assert "overall IoU" in (tmp_path / "run" / "eval_results" /
+                             "deeplab_val_result.txt").read_text()
     assert cli_matching.make_parser().parse_args([]).device == "cuda"
