@@ -134,7 +134,25 @@ and prints no result):
      to 4 (path ``train_fg_gan_perceptual``: step walls, a profiled step,
      Inception's share of the device time, peak memory, B1 twice and B2
      once a step);
- 14. print the kernels line (six kernels: launches per path, times, the
+ 14. the non-default models (A10): at 64^2, each backbone's session
+     (FCN-8s, SegNet, DeepLab-v3+) on CUDA against the CPU (up logits
+     within 1e-4, flipped mask pixels counted), one call of each engine
+     with every model at bfloat16 (CUDA bf16's error against the CPU f32
+     result within 1.5 x the CPU bf16 result's own), B1's wrapper refusing
+     a bf16 operand, and one train step of Pix2Pix, Residual and MRU with
+     ``num_blocks=2`` against the CPU as in 11; path ``color_bf16``: a
+     full-width session at bfloat16 beside an f32 one from the same
+     weights (the mixed sequence counted, B1 by shape; 12 warm BG
+     commands each, interleaved; the BG generator's device ms; the
+     canvases' largest u8 difference; peak memory); paths
+     ``color_fcn8s``, ``color_segnet``, ``color_v3plus``: a full-width
+     session with each backbone, one cold and three warm routed FG
+     commands with the matching forward, the backbone's device ms and
+     peak memory; paths ``train_fg_pix2pix`` and ``train_fg_residual``:
+     ``cli_fg_gan --block_type`` at the default ``FGGanConfig``, 4 steps
+     resumed to 6, reported as in 11; path ``serve_fg_variants``: a routed
+     FG command from a session on each trained variant generator;
+ 15. print the kernels line (six kernels: launches per path, times, the
      f32 and 3xTF32 bounds, device ms by launch kind, HMMA counts),
      the card's name and power limit, and last ``{"ok": true, "device":
      {...}}``.
@@ -2441,28 +2459,39 @@ GAN_RUNS = {"fg": (6, 2), "bg": (4, 2),   # full-width steps, then resumed
 GAN_PROFILED_STEP = 4         # a warm step of each run, under the profiler
 GAN_LOSS_RTOL, GAN_SN_ATOL = 1e-4, 1e-5
 GAN_CLEAR_MU, GAN_UPDATE_ATOL, GAN_ADAM_BOUND = 1e-5, 1e-2, 4.0
+# Adam's first moment (with b1 = 0, the step's gradient), CUDA vs CPU:
+# each leaf within GAN_GRAD_REL of its largest (floored at 1e-3 of the
+# model's largest); an element is held to GAN_UPDATE_ATOL lr where its
+# moment is at least GAN_CLEAR_MU and GAN_CLEAR_REL of its leaf's largest
+# on both sides.  With b1 = 0 an element's update carries its gradient's
+# relative error: f32 gradients summed in another order differ by up to
+# ~7e-4 of a leaf's largest (the spectral-normed MRU discriminator), so an
+# element at 0.4-1% of its leaf's largest moves 1.0-1.3% of lr apart on
+# the two devices, and only elements at a tenth of it or more are held.
+GAN_GRAD_REL, GAN_CLEAR_REL = 2e-2, 1e-1
 GAN_TEXT = "the sky is blue and the ground is green"
+
+
+def fg_small_batch(rng, fg):
+    """One FG update's batch at ``fg``'s shapes, seeded."""
+    s, b = fg.image_size, fg.batch_size
+    return {"images": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+            "sketches": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+            "images_d": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+            "class_id": rng.randint(0, fg.num_classes, b),
+            "class_id_d": rng.randint(0, fg.num_classes, b),
+            "tokens": np.concatenate([np.zeros((b, 1), np.int64),
+                                      rng.randint(1, fg.vocab_size,
+                                                  (b, fg.max_len - 1))], 1)}
 
 
 def small_gan_batches(rng, fg, bg):
     """One FG step's (D, G) batches and one BG step's batch, seeded."""
-    def fg_batch():
-        s, b = fg.image_size, fg.batch_size
-        return {"images": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
-                "sketches": rng.uniform(-1, 1, (b, s, s, 3))
-                .astype(np.float32),
-                "images_d": rng.uniform(-1, 1, (b, s, s, 3))
-                .astype(np.float32),
-                "class_id": rng.randint(0, fg.num_classes, b),
-                "class_id_d": rng.randint(0, fg.num_classes, b),
-                "tokens": np.concatenate([np.zeros((b, 1), np.int64),
-                                          rng.randint(1, fg.vocab_size,
-                                                      (b, fg.max_len - 1))],
-                                         1)}
     s, b = bg.image_size, bg.batch_size
     tokens = rng.randint(1, bg.vocab_size, (b, bg.max_len))
     tokens[0, :2] = 0
-    return (fg_batch(), fg_batch()), ({
+    fg_batches = (fg_small_batch(rng, fg), fg_small_batch(rng, fg))
+    return fg_batches, ({
         "inputs": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
         "targets": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
         "tokens": tokens, "labels": rng.randint(0, 3, (b, s, s))},)
@@ -2478,8 +2507,10 @@ def check_gan_training_against_cpu():
     ones whose gradient is at rounding level either way, so free-running
     runs part by ~1% of some weights.  Losses and EMAs agree within
     GAN_LOSS_RTOL, the committed spectral-norm vectors within GAN_SN_ATOL,
-    an element whose Adam moment is at least GAN_CLEAR_MU on both within
-    GAN_UPDATE_ATOL lr and every element within GAN_ADAM_BOUND lr; B1
+    each leaf's gradient (Adam's first moment) within GAN_GRAD_REL of its
+    largest, an element whose moment is at least GAN_CLEAR_MU and
+    GAN_CLEAR_REL of its leaf's largest on both within GAN_UPDATE_ATOL lr
+    and every element within GAN_ADAM_BOUND lr; B1
     twice and B2 once a step on CUDA (the fakes of the D update, the G
     update's forward and its backward), never on the CPU."""
     import torch
@@ -2489,7 +2520,6 @@ def check_gan_training_against_cpu():
     from sketchyscenecolorization_torch.models.inception_v4 import \
         InceptionV4
     from sketchyscenecolorization_torch.ops.conv import apply_compute_dtype
-    from sketchyscenecolorization_torch.parallel import to_device
     from sketchyscenecolorization_torch.train import (
         create_bg_gan_state, create_fg_gan_state, make_bg_gan_train_step,
         make_fg_gan_train_step)
@@ -2520,71 +2550,101 @@ def check_gan_training_against_cpu():
              make_fg_perceptual, fg_lr),
             ("BG", bg, create_bg_gan_state, make_bg,
              {"generator": bg.lr, "discriminator": bg.lr})):
-        t0 = time.perf_counter()
-        cpu, gpu = create(cfg, device="cpu"), create(cfg, device="cuda")
-        step_cpu, step_gpu = make(cfg, "cpu"), make(cfg, "cuda")
-        loss_err = sn_err = update_err = adam = 0.0
-        losses = []
-        for i, (fg_args, bg_args) in enumerate(batches):
-            args = bg_args if kind == "BG" else fg_args
-            gpu.load_state_dict(cpu.state_dict())
-            reset_counts()
-            gpu, m_gpu = step_gpu(gpu, *(to_device(b, "cuda") for b in args))
-            torch.cuda.synchronize()
-            counts = read_counts()
-            cpu, m_cpu = step_cpu(cpu,
-                                  *(to_device(b, "cpu") for b in args))
-            if read_counts() != counts or counts["mlstm_fwd"] != 2 or \
-                    counts["mlstm_bwd"] != 1:
-                raise AssertionError(f"{kind} step {i + 1}: launches {counts}"
-                                     f" on CUDA, {read_counts()} after the "
-                                     "CPU step; expected B1 2, B2 1, CPU 0")
-            for key, want in m_cpu.items():
-                if key == "nan":
-                    if bool(want) or bool(m_gpu[key]):
-                        raise AssertionError(f"{kind} step {i + 1}: NaN")
-                    continue
-                err = abs(float(m_gpu[key]) / float(want) - 1)
-                if not err <= GAN_LOSS_RTOL:
-                    raise AssertionError(f"{kind} step {i + 1} {key}: CUDA "
-                                         f"{float(m_gpu[key])} vs CPU "
-                                         f"{float(want)}")
-                loss_err = max(loss_err, err)
-            losses.append(float(m_cpu["gen_loss" if kind == "BG"
-                                      else "loss_g"]))
-            for want, got in zip(cpu.discriminator.buffers(),
-                                 gpu.discriminator.buffers()):
-                sn_err = max(sn_err, float((got.cpu() - want).abs().max()))
-            if sn_err > GAN_SN_ATOL:
-                raise AssertionError(f"{kind} step {i + 1}: committed u "
-                                     f"differ by {sn_err}")
-            for side, opt_c, opt_g in (
-                    ("generator", cpu.g_opt, gpu.g_opt),
-                    ("discriminator", cpu.d_opt, gpu.d_opt)):
-                want = dict(getattr(cpu, side).named_parameters())
-                got = dict(getattr(gpu, side).named_parameters())
-                for name, w in want.items():
-                    diff = (got[name].detach().cpu() - w.detach()).abs() \
-                        / lr[side]
-                    clear = (opt_c.mu[name].abs() >= GAN_CLEAR_MU) & \
-                        (opt_g.mu[name].cpu().abs() >= GAN_CLEAR_MU)
-                    adam = max(adam, float(diff.max()))
-                    if clear.any():
-                        update_err = max(update_err, float(diff[clear].max()))
-                    if update_err > GAN_UPDATE_ATOL or adam > GAN_ADAM_BOUND:
-                        raise AssertionError(
-                            f"{kind} step {i + 1} {side}.{name}: CUDA vs CPU "
-                            f"{update_err} lr on clear elements, {adam} lr "
-                            "on any")
-        log(f"small-config {kind} GAN training, {GAN_SMALL_STEPS} steps from "
-            f"the same states, CUDA vs CPU: G losses "
-            f"{[f'{x:.4f}' for x in losses]}, losses and EMAs max relative "
-            f"difference {loss_err:.2e} (tol {GAN_LOSS_RTOL:.0e}); committed "
-            f"u max-abs {sn_err:.2e} (tol {GAN_SN_ATOL:.0e}); parameters "
-            f"{update_err:.2e} lr where the moment >= {GAN_CLEAR_MU:.0e} "
-            f"(tol {GAN_UPDATE_ATOL:.0e}), {adam:.2f} lr at most (Adam bound "
-            f"{GAN_ADAM_BOUND}); B1 2 and B2 1 launches a CUDA step; "
-            f"{time.perf_counter() - t0:.1f} s")
+        gan_steps_against_cpu(
+            kind, cfg, create, make, lr,
+            [b[1] if kind == "BG" else b[0] for b in batches])
+
+
+def gan_steps_against_cpu(kind, cfg, create, make, lr, batches):
+    """``len(batches)`` train steps of ``cfg``'s GAN on CUDA and on the CPU,
+    each from the CPU run's state, with the checks and the log line of
+    ``check_gan_training_against_cpu``."""
+    import torch
+    from sketchyscenecolorization_torch.parallel import to_device
+    t0 = time.perf_counter()
+    cpu, gpu = create(cfg, device="cpu"), create(cfg, device="cuda")
+    step_cpu, step_gpu = make(cfg, "cpu"), make(cfg, "cuda")
+    loss_err = sn_err = update_err = adam = grad_err = 0.0
+    losses = []
+    for i, args in enumerate(batches):
+        gpu.load_state_dict(cpu.state_dict())
+        reset_counts()
+        gpu, m_gpu = step_gpu(gpu, *(to_device(b, "cuda") for b in args))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        cpu, m_cpu = step_cpu(cpu,
+                              *(to_device(b, "cpu") for b in args))
+        if read_counts() != counts or counts["mlstm_fwd"] != 2 or \
+                counts["mlstm_bwd"] != 1:
+            raise AssertionError(f"{kind} step {i + 1}: launches {counts}"
+                                 f" on CUDA, {read_counts()} after the "
+                                 "CPU step; expected B1 2, B2 1, CPU 0")
+        for key, want in m_cpu.items():
+            if key == "nan":
+                if bool(want) or bool(m_gpu[key]):
+                    raise AssertionError(f"{kind} step {i + 1}: NaN")
+                continue
+            err = abs(float(m_gpu[key]) / float(want) - 1)
+            if not err <= GAN_LOSS_RTOL:
+                raise AssertionError(f"{kind} step {i + 1} {key}: CUDA "
+                                     f"{float(m_gpu[key])} vs CPU "
+                                     f"{float(want)}")
+            loss_err = max(loss_err, err)
+        losses.append(float(m_cpu["gen_loss" if "gen_loss" in m_cpu
+                                  else "loss_g"]))
+        for want, got in zip(cpu.discriminator.buffers(),
+                             gpu.discriminator.buffers()):
+            sn_err = max(sn_err, float((got.cpu() - want).abs().max()))
+        if sn_err > GAN_SN_ATOL:
+            raise AssertionError(f"{kind} step {i + 1}: committed u "
+                                 f"differ by {sn_err}")
+        for side, opt_c, opt_g in (
+                ("generator", cpu.g_opt, gpu.g_opt),
+                ("discriminator", cpu.d_opt, gpu.d_opt)):
+            want = dict(getattr(cpu, side).named_parameters())
+            got = dict(getattr(gpu, side).named_parameters())
+            top = max(float(m.abs().max()) for m in opt_c.mu.values())
+            for name, w in want.items():
+                leaf = float(opt_c.mu[name].abs().max())
+                g_err = float((opt_g.mu[name].cpu() - opt_c.mu[name])
+                              .abs().max()) / max(leaf, 1e-3 * top)
+                grad_err = max(grad_err, g_err)
+                if g_err > GAN_GRAD_REL:
+                    raise AssertionError(f"{kind} step {i + 1} {side}."
+                                         f"{name}: gradient {g_err}")
+                clear_mu = max(GAN_CLEAR_MU, GAN_CLEAR_REL * leaf)
+                diff = (got[name].detach().cpu() - w.detach()).abs() \
+                    / lr[side]
+                clear = (opt_c.mu[name].abs() >= clear_mu) & \
+                    (opt_g.mu[name].cpu().abs() >= clear_mu)
+                adam = max(adam, float(diff.max()))
+                if clear.any():
+                    update_err = max(update_err, float(diff[clear].max()))
+                if update_err > GAN_UPDATE_ATOL or adam > GAN_ADAM_BOUND:
+                    at = int(torch.argmax(diff * clear))
+                    mu_c, mu_g = opt_c.mu[name], opt_g.mu[name].cpu()
+                    log(f"  {side}.{name}: worst clear element {at}: moment "
+                        f"CPU {float(mu_c.flatten()[at]):.6g}, CUDA "
+                        f"{float(mu_g.flatten()[at]):.6g}; the leaf's "
+                        f"largest {float(mu_c.abs().max()):.6g}; second "
+                        f"moment {float(opt_c.nu[name].flatten()[at]):.6g}"
+                        f"; largest leaf gradient difference "
+                        f"{float((mu_g - mu_c).abs().max()):.6g}")
+                    raise AssertionError(
+                        f"{kind} step {i + 1} {side}.{name}: CUDA vs CPU "
+                        f"{update_err} lr on clear elements, {adam} lr "
+                        "on any")
+    log(f"small-config {kind} GAN training, {len(batches)} steps from "
+        f"the same states, CUDA vs CPU: G losses "
+        f"{[f'{x:.4f}' for x in losses]}, losses and EMAs max relative "
+        f"difference {loss_err:.2e} (tol {GAN_LOSS_RTOL:.0e}); committed "
+        f"u max-abs {sn_err:.2e} (tol {GAN_SN_ATOL:.0e}); parameters "
+        f"{update_err:.2e} lr where the moment >= {GAN_CLEAR_MU:.0e} and "
+        f"{GAN_CLEAR_REL:.0e} of its leaf's largest (tol "
+        f"{GAN_UPDATE_ATOL:.0e}), {adam:.2f} lr at most (Adam bound "
+        f"{GAN_ADAM_BOUND}); gradients {grad_err:.2e} of each leaf's "
+        f"largest (tol {GAN_GRAD_REL:.0e}); B1 2 and B2 1 launches a CUDA "
+        f"step; {time.perf_counter() - t0:.1f} s")
 
 
 def write_fg_gan_data(base, n=4, text_len=15):
@@ -3329,6 +3389,378 @@ def perceptual_gan_training(gan_runs):
     return rec[2]
 
 
+# ------------------------------------------- A10: the non-default models
+
+A10_BACKBONES = {"fcn_8s": "color_fcn8s", "segnet": "color_segnet",
+                 "deeplab_v3plus": "color_v3plus"}
+A10_FG_VARIANTS = {"Pix2Pix": "train_fg_pix2pix",
+                   "Residual": "train_fg_residual"}
+GAN_RUNS.update(fg_pix2pix=(4, 2), fg_residual=(4, 2))
+A10_WARM_FG = 3     # warm routed FG commands of each backbone's session
+A10_LOGIT_ATOL = 1e-4   # CUDA vs CPU up logits at 64^2 (|up| ~ 1)
+BF16_WARM = 12      # warm BG commands of each side of the bf16 A/B
+BF16_RATIO = 1.5    # CUDA bf16's mean-abs error against the CPU f32
+                    # result, over the CPU bf16 result's own
+BF16_MAX_RATIO = 2.0    # the same for the max-abs error
+A10_FG_ARGS = []    # extra cli_fg_gan arguments of the variant runs
+A10_ROUTES = {"the bus is yellow": [0], "the car is red": [1],
+              "the grass is green": [3], "the bus is blue": [0]}
+
+
+def a10_config(cfg, backbone=None, dtype=None, block_type=None, **pipeline):
+    """``cfg`` with the matcher's backbone, every model's compute dtype,
+    the FG block type and pipeline fields replaced where given."""
+    m, f, b = cfg.matching, cfg.fg_gan, cfg.bg_gan
+    if backbone:
+        m = dataclasses.replace(m, backbone=backbone)
+    if dtype:
+        m, f, b = (dataclasses.replace(c, compute_dtype=dtype)
+                   for c in (m, f, b))
+    if block_type:
+        f = dataclasses.replace(f, block_type=block_type)
+    return dataclasses.replace(cfg, matching=m, fg_gan=f, bg_gan=b,
+                               pipeline=dataclasses.replace(cfg.pipeline,
+                                                            **pipeline))
+
+
+def _engine_calls(session, state):
+    """(matching up logits, FG rows u8, BG canvas u8) of one call of each
+    engine on the small scene, on the host."""
+    import torch
+    from sketchyscenecolorization_torch.pipeline.engines import PIXEL_MU
+    dev = session.device
+    image = torch.from_numpy((state.sketch.astype(np.float32) - PIXEL_MU)
+                             .astype(np.float32)[None]).to(dev)
+    words, lens = session.matching.encode_texts(["the bus", "a red car"])
+    up = session.matching.fuse_logits(
+        session.matching.extract_visual_dev(image), words, lens)
+    s = session.cfg.fg_gan.image_size
+    rows = np.stack([state.prepared_instance(i, s) for i in (0, 1)])
+    fg = session.fg.colorize_batch(rows, [0, 3], "the bus is red")
+    bg, _ = session.bg.colorize(state.sketch, "the sky is blue")
+    return (up.cpu().numpy()[..., 0], fg.astype(np.float32),
+            bg.astype(np.float32))
+
+
+def check_a10_against_cpu(build_session):
+    """The A10 models on CUDA against the CPU at small configs (64^2) from
+    the same seeded weights: each backbone's ``up`` logits (within
+    A10_LOGIT_ATOL) and 1e-9-thresholded masks (the flipped pixels
+    counted: a logit within the tolerance of the threshold may flip); one
+    call of each engine with every model at bfloat16, whose error against
+    the CPU's f32 result may be BF16_RATIO x (mean-abs) and
+    BF16_MAX_RATIO x (max-abs) the CPU bf16 result's own;
+    a bf16 operand refused by B1's wrapper on the card; one train step of
+    Pix2Pix, Residual and MRU with ``num_blocks=2`` as
+    ``check_gan_training_against_cpu`` takes them."""
+    import torch
+    from sketchyscenecolorization_torch.config import FGGanConfig
+    from sketchyscenecolorization_torch.ops import mlstm
+    from sketchyscenecolorization_torch.train import (create_fg_gan_state,
+                                                      make_fg_gan_train_step)
+    t0 = time.perf_counter()
+    texts = ["the bus", "a red car"]
+    for backbone in A10_BACKBONES:
+        ups = []
+        for device in ("cuda", "cpu"):
+            tmp = tempfile.mkdtemp(prefix=f"smoke_a10_{backbone}_{device}_")
+            write_scene(os.path.join(tmp, "examples"), 64)
+            session = build_session(a10_config(small_config(tmp), backbone),
+                                    seed=0, device=device)
+            reset_counts()
+            up = _engine_calls(session, session._state(IMAGE_ID))[0]
+            launched = read_counts()["mlstm_fwd"]
+            if (launched < 1) if device == "cuda" else launched:
+                raise AssertionError(f"{backbone}: {launched} B1 launches on "
+                                     f"{device}")
+            ups.append(up)
+        err = float(np.abs(ups[0] - ups[1]).max())
+        flips = (ups[0] >= 1e-9) != (ups[1] >= 1e-9)
+        near = np.abs(ups[1]) <= A10_LOGIT_ATOL
+        if err > A10_LOGIT_ATOL or (flips & ~near).any():
+            raise AssertionError(f"{backbone}: up max-abs {err}, "
+                                 f"{int(flips.sum())} mask flips")
+        log(f"small-config {backbone} session ({len(texts)} instructions, "
+            f"64^2), CUDA vs CPU: up max-abs {err:.2e} (tol "
+            f"{A10_LOGIT_ATOL:.0e}, |up| <= {np.abs(ups[1]).max():.3f}), "
+            f"{int(flips.sum())} of {flips.size} mask pixels flipped")
+    outs = {}
+    for device, dtype in (("cuda", "bfloat16"), ("cpu", "bfloat16"),
+                          ("cpu", "float32")):
+        tmp = tempfile.mkdtemp(prefix=f"smoke_a10_{dtype}_{device}_")
+        write_scene(os.path.join(tmp, "examples"), 64)
+        session = build_session(a10_config(small_config(tmp), dtype=dtype),
+                                seed=0, device=device)
+        outs[(device, dtype)] = _engine_calls(session,
+                                              session._state(IMAGE_ID))
+    for i, name in enumerate(("matching up", "FG u8", "BG u8")):
+        gpu, cpu16, cpu32 = (outs[k][i] for k in (
+            ("cuda", "bfloat16"), ("cpu", "bfloat16"), ("cpu", "float32")))
+        floor = 1.0 if "u8" in name else 1e-6
+        own = (max(np.abs(cpu16 - cpu32).mean(), floor / 10),
+               max(np.abs(cpu16 - cpu32).max(), floor))
+        ours = (np.abs(gpu - cpu32).mean(), np.abs(gpu - cpu32).max())
+        if ours[0] > BF16_RATIO * own[0] or \
+                ours[1] > BF16_MAX_RATIO * own[1]:
+            raise AssertionError(f"bf16 {name}: CUDA vs CPU f32 {ours}, CPU "
+                                 f"bf16's own {own}")
+        log(f"small-config bf16 engine call, {name}: CUDA bf16 vs CPU f32 "
+            f"mean-abs {ours[0]:.4g} max-abs {ours[1]:.4g}; CPU bf16 vs f32 "
+            f"{own[0]:.4g} / {own[1]:.4g} (ratio tol {BF16_RATIO} / "
+            f"{BF16_MAX_RATIO}); CUDA vs "
+            f"CPU bf16 max-abs {np.abs(gpu - cpu16).max():.4g}")
+    bad = torch.zeros(1, 4, 16, device="cuda", dtype=torch.bfloat16)
+    try:
+        mlstm.mlstm_cuda(bad, torch.zeros(1, 2, 16, device="cuda"),
+                         torch.zeros(4, 16, device="cuda"),
+                         torch.ones(1, 2, dtype=torch.int32, device="cuda"))
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("B1's wrapper took a bf16 operand")
+    base = FGGanConfig(batch_size=2, image_size=64, vocab_size=10, max_len=4,
+                       base_channels=4, noise_dim=8, max_iters=100)
+    rng = np.random.RandomState(1)
+    for kind, kw in (("FG Pix2Pix", dict(block_type="Pix2Pix")),
+                     ("FG Residual", dict(block_type="Residual")),
+                     ("FG MRU num_blocks=2", dict(num_blocks=2))):
+        cfg = dataclasses.replace(base, **kw)
+        batch = (fg_small_batch(rng, cfg), fg_small_batch(rng, cfg))
+        gan_steps_against_cpu(kind, cfg, create_fg_gan_state,
+                              lambda c, d: make_fg_gan_train_step(c),
+                              {"generator": cfg.lr_g,
+                               "discriminator": cfg.lr_d}, [batch])
+    log(f"check_a10_against_cpu: {time.perf_counter() - t0:.1f} s")
+
+
+def _bg_device_ms(session):
+    """The BG generator's device time on one 768^2 forward under the
+    session's compute dtype: (CUDA-event ms over 5 forwards, profiled
+    kernel ms of one)."""
+    import torch
+    from sketchyscenecolorization_torch.ops.conv import compute_dtype_scope
+    cfg = session.cfg.bg_gan
+    x = torch.rand(1, cfg.image_size, cfg.image_size, 3,
+                   generator=torch.Generator().manual_seed(0)).to("cuda") * 2 - 1
+    tokens = torch.ones(1, cfg.max_len, dtype=torch.long, device="cuda")
+
+    def forward():
+        with torch.no_grad(), compute_dtype_scope(cfg.compute_dtype):
+            return session.bg.model(x, tokens)
+    ms = cuda_ms(forward, 5)
+    _, _, kernels = profile_kernels(forward)
+    return ms, sum(kernels.values())
+
+
+def bf16_run(build_session, card):
+    """Path ``color_bf16``: a full-width session with every model at
+    bfloat16 (default widths, 768^2) beside an f32 session from the same
+    seeded weights, on one synthetic scene.  The bf16 session runs the
+    mixed FG/BG sequence with its FG instruction routed (counted: B1's
+    launches by shape show the text fusions at f32 in the kernel); then
+    BF16_WARM warm BG commands on each session, interleaved, the BG
+    generator's device ms on each, the largest u8 difference of the two
+    sessions' canvases and the bf16 session's peak memory.  Returns the
+    launch counts of the counted run."""
+    import torch
+    tmp = tempfile.mkdtemp(prefix="smoke_bf16_")
+    cfg32 = full_width_config(tmp)
+    write_scene(os.path.join(tmp, "examples"), cfg32.pipeline.image_size)
+    cfg16 = a10_config(cfg32, dtype="bfloat16",
+                       results_base_dir=os.path.join(tmp, "outputs16"))
+    sessions = {}
+    for name, cfg in (("f32", cfg32), ("bf16", cfg16)):
+        sessions[name] = routed(build_session(cfg, seed=0, device="cuda"),
+                                A10_ROUTES)
+        sessions[name]._state(IMAGE_ID)   # fixture decode: set-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                     # path starts
+    t0 = time.perf_counter()
+    with b1_shapes() as tally:
+        run_mixed(sessions["bf16"])
+        torch.cuda.synchronize()
+    counts = read_counts()                             # path ends
+    mixed_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if counts["mlstm_fwd"] < 4:
+        raise AssertionError(f"bf16 mixed sequence: launches {counts}")
+    run_mixed(sessions["f32"])
+    _, img32 = read_outputs(tmp)
+    _, img16 = read_outputs(tmp, "outputs16")
+    if sorted(img32) != sorted(img16):
+        raise AssertionError(f"canvases {sorted(img32)} vs {sorted(img16)}")
+    diffs = {n: np.abs(img16[n].astype(int) - img32[n].astype(int))
+             for n in img32}
+    walls = {"f32": [], "bf16": []}
+    for i in range(BF16_WARM):
+        for name in (("f32", "bf16") if i % 2 else ("bf16", "f32")):
+            t0 = time.perf_counter()
+            sessions[name].colorize(IMAGE_ID, BG_TEXTS[i % len(BG_TEXTS)])
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+    gen_ms = {name: _bg_device_ms(s) for name, s in sessions.items()}
+    log(f"path color_bf16 (compute_dtype bfloat16 for the matcher, FG and "
+        f"BG, 768^2, default widths; {card}): mixed sequence "
+        f"{mixed_s:.3f} s, launches {counts}, B1 by (N, P, H) "
+        f"{dict(tally)} (the kernel takes f32 only); peak device memory "
+        f"{peak:.2f} GiB")
+    log("  warm BG commands, interleaved, median wall ms: "
+        + ", ".join(f"{n} {np.median(w):.1f} ({min(w):.1f}-{max(w):.1f})"
+                    for n, w in walls.items()))
+    log("  BG generator forward, device ms (CUDA events / profiled kernels):"
+        " " + ", ".join(f"{n} {a:.2f} / {b:.2f}"
+                        for n, (a, b) in gen_ms.items()))
+    log("  bf16 vs f32 canvases: " + ", ".join(
+        f"{n} max {int(d.max())} LSB, {int((d.max(axis=-1) > 0).sum())} "
+        f"pixels differ" for n, d in sorted(diffs.items())))
+    return counts
+
+
+def backbone_session_run(build_session, backbone, card):
+    """Path ``color_<backbone>``: a full-width session (768^2, default
+    widths) with the ``backbone`` matcher on the synthetic scene: one cold
+    and A10_WARM_FG warm FG ``color`` commands with the matching forward
+    run and the selection routed (``routed(..., match=True)``): B1 once
+    for the matcher and once for the generator a command; the backbone's
+    device ms on one 768^2 image; the up logits finite; peak memory.
+    Returns the launch counts."""
+    import torch
+    tmp = tempfile.mkdtemp(prefix=f"smoke_{backbone}_")
+    cfg = a10_config(full_width_config(tmp), backbone)
+    write_scene(os.path.join(tmp, "examples"), cfg.pipeline.image_size)
+    t0 = time.perf_counter()
+    session = routed(build_session(cfg, seed=0, device="cuda"), A10_ROUTES,
+                     match=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    state = session._state(IMAGE_ID)
+    torch.cuda.reset_peak_memory_stats()
+    texts = list(A10_ROUTES)[:1 + A10_WARM_FG]
+    walls = []
+    reset_counts()                                     # path starts
+    for text in texts:
+        t0 = time.perf_counter()
+        session.colorize(IMAGE_ID, text)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()                             # path ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if counts["mlstm_fwd"] != 2 * len(texts):
+        raise AssertionError(f"{backbone}: launches {counts}, expected "
+                             f"{2 * len(texts)} B1")
+    model = session.matching.model
+    image = torch.randn(1, cfg.matching.H, cfg.matching.W, 3,
+                        device="cuda") * 50
+
+    def backbone_fwd():
+        with torch.no_grad():
+            return model.backbone(image)
+    bb_ms = cuda_ms(backbone_fwd, 3)
+    words, lens = session.matching.encode_texts(texts[:1])
+    up = session.matching.fuse_logits(state.visual_dev, words, lens)
+    if not torch.isfinite(up).all():
+        raise AssertionError(f"{backbone}: up logits not finite")
+    n_params = sum(p.numel() for p in model.backbone.parameters())
+    log(f"path {A10_BACKBONES[backbone]} ({backbone}, {n_params / 1e6:.1f}M "
+        f"backbone parameters, 768^2; {card}): build_session {build_s:.2f} "
+        f"s; routed FG commands with the matching forward: cold "
+        f"{walls[0]:.1f} ms, warm " + ", ".join(f"{w:.1f}" for w in walls[1:])
+        + f" ms; backbone forward {bb_ms:.2f} ms (CUDA events); launches "
+        f"{counts}; peak device memory {peak:.2f} GiB")
+    return counts
+
+
+def variant_gan_training():
+    """Paths ``train_fg_pix2pix`` and ``train_fg_residual``: ``cli_fg_gan
+    --mode train --block_type ...`` at the default ``FGGanConfig`` (192^2,
+    batch 2, base 64) on the synthetic record shard, 4 steps resumed to 6,
+    as ``full_width_gan_training`` runs the MRU pair.  Returns ({path:
+    launch counts}, {block type: run dir})."""
+    from sketchyscenecolorization_torch import cli_fg_gan
+    from sketchyscenecolorization_torch.config import FGGanConfig
+    from sketchyscenecolorization_torch.train import harness
+    from sketchyscenecolorization_torch.utils.checkpoint import (
+        list_checkpoint_steps)
+    paths, runs = {}, {}
+    for block_type, path in A10_FG_VARIANTS.items():
+        t0 = time.perf_counter()
+        kind = f"fg_{block_type.lower()}"
+        tmp = tempfile.mkdtemp(prefix=f"smoke_{kind}_")
+        write_fg_gan_data(tmp)
+        run = os.path.join(tmp, "run")
+        steps, resumed = GAN_RUNS[kind]
+
+        def argv(n, resume, run=run, tmp=tmp, block_type=block_type):
+            return ["--mode", "train", "--data_base_dir", tmp,
+                    "--resume_from", run, "--max_iter_step", str(n),
+                    "--block_type", block_type, "--device", "cuda",
+                    *A10_FG_ARGS]
+        log(f"path {path}: cli_fg_gan --block_type {block_type} at the "
+            f"default FGGanConfig")
+        result = gan_cli_run(kind, cli_fg_gan.main, argv, harness,
+                             "make_fg_gan_train_step")
+        snaps = list_checkpoint_steps(os.path.join(run, "snapshot"))
+        if snaps != [steps, steps + resumed]:
+            raise AssertionError(f"{kind} snapshots {snaps}")
+        cfg = FGGanConfig(**json.load(open(os.path.join(run,
+                                                        "params.json"))))
+        _moved_generator("fg", cfg, os.path.join(run, "snapshot"))
+        report_gan_run(kind, *result, "loss_g")
+        log(f"  {kind} phase {time.perf_counter() - t0:.1f} s")
+        paths[path] = result[2]
+        runs[block_type] = run
+        release()
+    return paths, runs
+
+
+def serve_fg_variants(build_session, runs):
+    """Path ``serve_fg_variants``: for each variant run, a full-width
+    session whose FG generator is the run's (``fg_ckpt_dir``, and the
+    run's ``FGGanConfig`` from its ``params.json``), checked equal to the
+    snapshot's, serves one routed FG command: B1 once each."""
+    import torch
+    from PIL import Image
+    from sketchyscenecolorization_torch.config import FGGanConfig
+    from sketchyscenecolorization_torch.utils.checkpoint import (
+        latest_checkpoint, restore_checkpoint)
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="smoke_serve_variants_")
+    base = full_width_config(tmp)
+    write_scene(os.path.join(tmp, "examples"), base.pipeline.image_size)
+    sessions = {}
+    for block_type, run in runs.items():
+        cfg = a10_config(base, fg_ckpt_dir=os.path.join(run, "snapshot"),
+                         results_base_dir=os.path.join(tmp, block_type))
+        cfg = dataclasses.replace(cfg, fg_gan=FGGanConfig(**json.load(
+            open(os.path.join(run, "params.json")))))
+        assert cfg.fg_gan.block_type == block_type
+        session = routed(build_session(cfg, seed=0, device="cuda"),
+                         {"the bus is yellow": [0]})
+        saved = restore_checkpoint(latest_checkpoint(cfg.pipeline.fg_ckpt_dir)
+                                   [1], map_location="cpu")["generator"]
+        served = session.fg.model.state_dict()
+        if any(not torch.equal(served[k].cpu(), v) for k, v in saved.items()):
+            raise AssertionError(f"{block_type}: served generator differs")
+        session._state(IMAGE_ID)
+        sessions[block_type] = session
+    reset_counts()                                     # path starts
+    outs = [s.colorize(IMAGE_ID, "the bus is yellow")
+            for s in sessions.values()]
+    torch.cuda.synchronize()
+    counts = read_counts()                             # path ends
+    if counts["mlstm_fwd"] != len(runs):
+        raise AssertionError(f"serve_fg_variants: launches {counts}")
+    for out in outs:
+        img = np.array(Image.open(out))
+        if img.shape != (base.pipeline.image_size,) * 2 + (3,):
+            raise AssertionError(f"{out}: shape {img.shape}")
+    log(f"path serve_fg_variants: sessions on the {sorted(runs)} runs' "
+        f"generators (equal to their snapshots), one routed FG command "
+        f"each; launches {counts}; {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def release():
     """Free what the last phase dropped (the engines' noise sources are
     reference cycles, so a dropped session waits for the collector), so
@@ -3518,6 +3950,23 @@ def main() -> int:
     inception_run(gan_runs)
     release()
     paths["train_fg_gan_perceptual"] = perceptual_gan_training(gan_runs)
+    release()
+    check_a10_against_cpu(build_session)
+    release()
+    t0 = time.perf_counter()
+    paths["color_bf16"] = bf16_run(build_session, card)
+    log(f"bf16_run: {time.perf_counter() - t0:.1f} s")
+    for backbone, path in A10_BACKBONES.items():
+        release()
+        t0 = time.perf_counter()
+        paths[path] = backbone_session_run(build_session, backbone, card)
+        log(f"backbone_session_run {backbone}: "
+            f"{time.perf_counter() - t0:.1f} s")
+    release()
+    variant_paths, variant_runs = variant_gan_training()
+    paths.update(variant_paths)
+    paths["serve_fg_variants"] = serve_fg_variants(build_session,
+                                                   variant_runs)
 
     by_kernel = {k: {path: c[k] for path, c in paths.items() if c[k]}
                  for k in kernel_counters()}

@@ -14,8 +14,9 @@ after a NaN loss.  ``val`` (shards ``<d>/records/val``), ``test``
 (``<d>/captions/<category>/test.json``, ``<d>/images/<category>/sketch``,
 ``<d>/vocab.txt``) and ``inference`` (``examples/<image_name>`` with
 ``--instruction``) restore the generator of the newest snapshot of
-``--resume_from`` and write PNGs under it.  ``--block_type`` other than
-MRU is ROADMAP item A10.
+``--resume_from`` and write PNGs under it.  ``--block_type`` picks the MRU
+generator and discriminator (the default) or the Pix2Pix or Residual
+variant.
 """
 from __future__ import annotations
 

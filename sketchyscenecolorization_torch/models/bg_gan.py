@@ -9,6 +9,11 @@ the offset).  Channel counts, which flax infers at call time, are computed
 at construction.  Submodules and leaves are named after the flax tree
 (``encoder_2_0/block_1_bn/scale``, ``mLSTM_G/alstm_w``,
 ``region_br_1_deconv/filter``, ...), so ``utils/bridge.py`` maps it 1:1.
+The bottleneck blocks take ``per_sample`` (batch-stats per row) for the FG
+variants of ``models/fg_gan_variants.py``, which reuse them; the BG
+generator serves one image at a time.  Under the bf16 compute-dtype scope
+the convs store bf16 and the norms keep it, so the stream stays bf16 up to
+the outputs; the text fusion computes in f32 (``models/gan_layers.py``).
 """
 from __future__ import annotations
 
@@ -64,7 +69,7 @@ class Deconv(nn.Module):
         self.filter = _normal((cin, features, 4, 4), generator)
 
     def forward(self, x):
-        return conv2d_transpose(x, self.filter)
+        return conv2d_transpose(x, self.filter, stride=2)
 
 
 class BottleneckResidualEn(nn.Module):
@@ -84,12 +89,13 @@ class BottleneckResidualEn(nn.Module):
             self.block_add_conv = Conv(cin, out_filter, stride, g)
             self.block_add_bn = BatchStatsNorm(out_filter, g)
 
-    def forward(self, x):
-        y = lrelu(self.block_1_bn(self.block_1_conv(x)), 0.2)
-        y = lrelu(self.block_2_bn(self.block_2_conv(y)), 0.2)
-        y = self.block_3_bn(self.block_3_conv(y))
+    def forward(self, x, per_sample: bool = False):
+        ps = per_sample
+        y = lrelu(self.block_1_bn(self.block_1_conv(x), ps), 0.2)
+        y = lrelu(self.block_2_bn(self.block_2_conv(y), ps), 0.2)
+        y = self.block_3_bn(self.block_3_conv(y), ps)
         if hasattr(self, "block_add_conv"):
-            x = self.block_add_bn(self.block_add_conv(x))
+            x = self.block_add_bn(self.block_add_conv(x), ps)
         return lrelu(y + x, 0.2)
 
 
@@ -108,11 +114,12 @@ class BottleneckResidualDe(nn.Module):
         self.block_add_deconv = Deconv(cin, out_filter, g)
         self.block_add_bn = BatchStatsNorm(out_filter, g)
 
-    def forward(self, x):
-        y = torch.relu(self.block_1_bn(self.block_1_deconv(x)))
-        y = torch.relu(self.block_2_bn(self.block_2_conv(y)))
-        y = self.block_3_bn(self.block_3_conv(y))
-        return torch.relu(y + self.block_add_bn(self.block_add_deconv(x)))
+    def forward(self, x, per_sample: bool = False):
+        ps = per_sample
+        y = torch.relu(self.block_1_bn(self.block_1_deconv(x), ps))
+        y = torch.relu(self.block_2_bn(self.block_2_conv(y), ps))
+        y = self.block_3_bn(self.block_3_conv(y), ps)
+        return torch.relu(y + self.block_add_bn(self.block_add_deconv(x), ps))
 
 
 class BottleneckResidualPu(nn.Module):
@@ -133,10 +140,11 @@ class BottleneckResidualPu(nn.Module):
     def _act(self, x):
         return lrelu(x, 0.2) if self.is_encoder else torch.relu(x)
 
-    def forward(self, x):
-        y = self._act(self.block_1_bn(self.block_1_conv(x)))
-        y = self._act(self.block_2_bn(self.block_2_conv(y)))
-        return self._act(self.block_3_bn(self.block_3_conv(y)) + x)
+    def forward(self, x, per_sample: bool = False):
+        ps = per_sample
+        y = self._act(self.block_1_bn(self.block_1_conv(x), ps))
+        y = self._act(self.block_2_bn(self.block_2_conv(y), ps))
+        return self._act(self.block_3_bn(self.block_3_conv(y), ps) + x)
 
 
 class ResidualGenerator(nn.Module):
@@ -330,8 +338,6 @@ def build_generator(cfg, generator: Optional[torch.Generator] = None
                     ) -> nn.Module:
     """The BG generator of a ``BGGanConfig``: residual (with the region
     branch) or pix2pix, as JAX ``train/bg_gan.py:build_models`` picks."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError("the port computes in float32 only")
     if cfg.residual_enc_g:
         return ResidualGenerator(ngf=cfg.ngf, vocab_size=cfg.vocab_size,
                                  seg_classes=cfg.seg_classes,

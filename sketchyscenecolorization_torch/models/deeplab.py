@@ -6,7 +6,10 @@ Bottleneck units [3, 4, 23, 3], atrous rate 2 in group_4 and 4 in group_5;
 frozen BN divides its stored moments by a stored ``factor``, eps 0.001.
 Submodules carry the JAX tree's names (``group_2_0/block_1/conv/DW``) so
 ``utils/bridge.py`` maps the trees 1:1.  Only the intermediate feature map
-(the RMI path) is built; the ASPP head is not part of it.
+(the RMI path) is built; the ASPP head is not part of it.  Under the bf16
+compute-dtype scope (``ops/conv.py``) each conv stores bf16 and the frozen
+BN's f32 parameters bring the stream back to f32 (JAX
+``deeplab.py:119-157``).
 """
 from __future__ import annotations
 

@@ -10,6 +10,12 @@ use spectral norm; the discriminator of the FG GAN does
 power-iteration vector as the buffer ``u`` [1, out] (the flax ``sn``
 collection), and a forward stores the iteration's new ``u`` only inside
 ``commit_sn``, as a flax ``apply`` with ``mutable=["sn"]`` does.
+
+Under the bf16 compute-dtype scope (``ops/conv.py``) the layers keep the
+activation's dtype where JAX does: a conv's bias, a dense layer's weights
+and bias and the PReLU leak are cast to it; the text fusion computes in f32
+and hands its result back at the caller's dtype (JAX
+``gan_layers.py:68-70,97,118,182-185,232``).
 """
 from __future__ import annotations
 
@@ -67,6 +73,20 @@ def commit_sn(model: nn.Module):
             m.commit_sn = False
 
 
+def init_sn(model: nn.Module) -> None:
+    """Store one power iteration in each spectral-norm vector of
+    ``model``'s ``SNConv``/``SNDense`` layers, as a flax ``init`` does: it
+    runs the forward with the ``sn`` collection mutable, so a fresh JAX
+    discriminator's ``u`` is the iterate of its truncated-normal draw
+    (JAX ``gan_layers.py:50-59,84-93``), not the draw."""
+    with torch.no_grad(), commit_sn(model):
+        for m in model.modules():
+            if isinstance(m, SNConv) and m.sn:
+                sn_weight(m, m.weights, out_dim=0)
+            elif isinstance(m, SNDense) and m.sn:
+                sn_weight(m, m.weights)
+
+
 def apply_activation(x, activation: Optional[str],
                      module: Optional[nn.Module] = None):
     """The activations of JAX ``gan_layers.py:101-120``; ``prelu`` reads
@@ -84,7 +104,7 @@ def apply_activation(x, activation: Optional[str],
     if activation == "tanh":
         return torch.tanh(x)
     if activation == "prelu":
-        return torch.maximum(module.prelu_param * x, x)
+        return torch.maximum(module.prelu_param.to(x.dtype) * x, x)
     raise ValueError(f"unknown activation {activation}")
 
 
@@ -127,7 +147,8 @@ class SNConv(nn.Module):
     def forward(self, x, normalizer: Optional[Callable] = None):
         w = sn_weight(self, self.weights, out_dim=0) if self.sn \
             else self.weights
-        y = conv2d(x, w, stride=self.stride) + self.biases
+        y = conv2d(x, w, stride=self.stride)
+        y = y + self.biases.to(y.dtype)
         if normalizer is not None:
             y = normalizer(y)
         return apply_activation(y, self.activation, self)
@@ -153,7 +174,8 @@ class SNDense(nn.Module):
 
     def forward(self, x):
         w = sn_weight(self, self.weights) if self.sn else self.weights
-        return apply_activation(x @ w + self.biases, self.activation, self)
+        y = x @ w.to(x.dtype) + self.biases.to(x.dtype)
+        return apply_activation(y, self.activation, self)
 
 
 class CondBatchNorm(nn.Module):
@@ -181,8 +203,9 @@ class BatchStatsNorm(nn.Module):
         self.scale = nn.Parameter(
             1.0 + 0.02 * torch.randn(c, generator=generator))
 
-    def forward(self, x):
-        return batch_stats_norm(x, self.offset, self.scale)
+    def forward(self, x, per_sample: bool = False):
+        return batch_stats_norm(x, self.offset, self.scale,
+                                per_sample=per_sample)
 
 
 def minmax_normalize(x, eps: float = 1e-12):
@@ -202,6 +225,8 @@ class TextFusionLSTM(nn.Module):
     second LSTM over every bottleneck cell.  Pad tokens (0, front-padded)
     skip both cells.  The second LSTM's input projection is factored, and
     its recurrence is ``masked_pixel_lstm`` (the CUDA kernel on the card).
+    It computes at its parameters' dtype (f32) whatever the scope, as the
+    kernel takes only f32, and returns at ``visual``'s dtype.
 
     visual [B, h, w, C], tokens [B, T] -> [B, h, w, C].
     """
@@ -216,6 +241,8 @@ class TextFusionLSTM(nn.Module):
         self.alstm_b = nn.Parameter(torch.zeros(4 * c))
 
     def forward(self, visual, tokens):
+        in_dtype = visual.dtype
+        visual = visual.to(self.alstm_w.dtype)
         b, h, w, c = visual.shape
         emb = self.embedding[tokens]                 # [B, T, C]
         valid = tokens != 0                          # [B, T]
@@ -240,4 +267,4 @@ class TextFusionLSTM(nn.Module):
         pixel_term = visual_norm @ w_v                               # [B, P, 4C]
         step_term = emb @ w_w + lang @ w_l + self.alstm_b            # [B, T, 4C]
         h_a = masked_pixel_lstm(pixel_term, step_term, w_h, valid)
-        return atanh_transform(h_a.reshape(b, h, w, c))
+        return atanh_transform(h_a.reshape(b, h, w, c)).to(in_dtype)

@@ -14,8 +14,14 @@ the card).  All three fusions of the JAX package are here: the default
 (``fusion_type='RMI'``), its word-attention variant (``use_attn=True``:
 the output is the attention-weighted sum of the per-step h,
 ``ops/mlstm.attn_weighted_pixel_lstm``) and the recurrent-attention fusion
-(``fusion_type='RecurAttn'``, ``ops/recur_attn.py``).  Only the DeepLab
-backbone is ported.
+(``fusion_type='RecurAttn'``, ``ops/recur_attn.py``).  The backbone is
+``cfg.backbone``: DeepLab-v2 (``models/deeplab.py``, the default) or
+FCN-8s, SegNet or DeepLab-v3+ (``models/backbones.py``), each a submodule
+named after its JAX scope (``ResNet``, ``FCN_8s``, ``SegNet``,
+``resnet_v1_101``) and each exiting at output stride 8.  With
+``compute_dtype='bfloat16'`` the instruction-independent half runs under
+the bf16 compute-dtype scope (``ops/conv.py``) and hands f32 features to
+the fusion, as JAX ``rmi.py:259-274`` does.
 """
 from __future__ import annotations
 
@@ -25,7 +31,7 @@ import torch
 from torch import nn
 
 from ..ops.activations import atanh_transform
-from ..ops.conv import conv2d
+from ..ops.conv import compute_dtype_scope, conv2d
 from ..ops.image import tf1_resize_bilinear
 from ..ops.lstm import masked_lstm_scan
 from ..ops.mlstm import attn_weighted_pixel_lstm, masked_pixel_lstm
@@ -48,6 +54,18 @@ def xavier_conv(cout, cin, k, generator):
     return uniform((cout, cin, k, k), limit, generator)
 
 
+def backbone_spec(cfg):
+    """(scope name, module class, feature width) of ``cfg.backbone`` (JAX
+    ``rmi.py:48-70``)."""
+    if cfg.backbone == "deeplab":
+        return "ResNet", DeepLabV2, 2048
+    from .backbones import BACKBONES
+    if cfg.backbone not in BACKBONES:
+        raise ValueError(f"unknown backbone {cfg.backbone!r}")
+    cls, dim = BACKBONES[cfg.backbone]
+    return cls.SCOPE, cls, dim
+
+
 class Leaves(nn.Module):
     """A node of a JAX parameter dict: named leaf tensors, no forward."""
 
@@ -60,7 +78,7 @@ class Leaves(nn.Module):
 class TextParams(nn.Module):
     """The ``text_sketchyscene`` scope (JAX ``rmi.py:84-127``)."""
 
-    def __init__(self, cfg, generator=None):
+    def __init__(self, cfg, generator=None, vf_dim: int = 2048):
         super().__init__()
         g = generator
         if cfg.fusion_type == "RecurAttn":
@@ -69,7 +87,7 @@ class TextParams(nn.Module):
         else:
             fusion_in = cfg.v_emb_dim + cfg.w_emb_dim + cfg.w_rnn_size + 8
         self.visual_feat_projection = Leaves(
-            DW=xavier_conv(cfg.v_emb_dim, cfg.vf_dim, 1, g),
+            DW=xavier_conv(cfg.v_emb_dim, vf_dim, 1, g),
             biases=torch.zeros(cfg.v_emb_dim))
         self.embedding = nn.Parameter(
             uniform((cfg.vocab_size, cfg.w_emb_dim), 0.08, g))
@@ -101,17 +119,17 @@ class RMI(nn.Module):
         super().__init__()
         if cfg.fusion_type not in ("RMI", "RecurAttn"):
             raise ValueError(f"unknown fusion_type {cfg.fusion_type!r}")
-        if cfg.backbone != "deeplab":
-            raise NotImplementedError(
-                f"backbone {cfg.backbone!r} is ROADMAP item A10")
         if cfg.shard_mlstm_pixels:
             raise NotImplementedError(
                 "mLSTM pixel sharding is ROADMAP item A13")
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("the port computes in float32 only")
         self.cfg = cfg
-        self.ResNet = DeepLabV2(generator)
-        self.text_sketchyscene = TextParams(cfg, generator)
+        self.scope, cls, dim = backbone_spec(cfg)
+        self.add_module(self.scope, cls(generator=generator))
+        self.text_sketchyscene = TextParams(cfg, generator, dim)
+
+    @property
+    def backbone(self) -> nn.Module:
+        return getattr(self, self.scope)
 
     def forward(self, images: torch.Tensor, words: torch.Tensor,
                 seq_len: torch.Tensor) -> RMIOutputs:
@@ -119,16 +137,18 @@ class RMI(nn.Module):
         return self.apply_fused(self.extract_visual(images), words, seq_len)
 
     def extract_visual(self, images: torch.Tensor) -> torch.Tensor:
-        """Backbone + 1x1 projection + L2 norm -> [N, h, w, v_emb].  A
-        frozen backbone (no parameter requires grad, as in fusion-only
-        training) runs without autograd, so none of its activations are
-        kept."""
+        """Backbone + 1x1 projection + L2 norm -> [N, h, w, v_emb] f32,
+        under the compute-dtype scope of ``cfg.compute_dtype``.  A frozen
+        backbone (no parameter requires grad, as in fusion-only training)
+        runs without autograd, so none of its activations are kept."""
         proj = self.text_sketchyscene.visual_feat_projection
-        frozen = not any(p.requires_grad for p in self.ResNet.parameters())
-        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
-            feat = self.ResNet(images)
-        visual = conv2d(feat, proj.DW) + proj.biases
-        return l2_normalize(visual, dim=-1)
+        frozen = not any(p.requires_grad for p in self.backbone.parameters())
+        with compute_dtype_scope(self.cfg.compute_dtype):
+            with torch.set_grad_enabled(torch.is_grad_enabled()
+                                        and not frozen):
+                feat = self.backbone(images)
+            visual = conv2d(feat, proj.DW) + proj.biases
+        return l2_normalize(visual.float(), dim=-1)
 
     def _rmi_fusion(self, visual_norm, spatial, emb, lang, seq_len):
         """Factored mLSTM over all pixels -> m_last_h [N, h, w, m]."""

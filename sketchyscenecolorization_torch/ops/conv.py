@@ -9,27 +9,74 @@ Weights are OIHW (``[out, in, kh, kw]``, PyTorch's layout), except the
 transposed conv's, which are ``[in, out, kh, kw]`` as ``F.conv_transpose2d``
 takes them; the weight bridge (``utils/bridge.py``) transposes the JAX
 package's HWIO kernels to each.
+
+The compute-dtype scope (JAX ``ops/conv.py:38-60``): inside
+``compute_dtype_scope("bfloat16")`` the three convolutions below cast both
+operands to bfloat16 and return bfloat16.  cuDNN accumulates a bf16
+convolution in f32 and rounds once at the output, as JAX's
+``preferred_element_type=bf16`` does.  Everything else keeps its dtype
+rules, so a bf16 conv output plus an f32 bias vector is f32 again, as in
+JAX.  The scope is opened per call (around an engine's forward, and in
+``RMI.extract_visual``) and is local to the thread, so engines of both
+dtypes can serve side by side.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import threading
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+_SCOPE = threading.local()
+
+
+@contextlib.contextmanager
+def compute_dtype_scope(dtype):
+    """``with compute_dtype_scope("bfloat16"): ...``; ``dtype`` may be None,
+    "float32", "bfloat16" or a torch dtype, and None / float32 store f32.
+    The previous scope is restored on exit."""
+    if dtype in (None, "float32", torch.float32):
+        dtype = None
+    elif dtype in ("bfloat16", torch.bfloat16):
+        dtype = torch.bfloat16
+    else:
+        raise ValueError(f"unknown compute dtype {dtype!r}")
+    prev = scope_dtype()
+    _SCOPE.dtype = dtype
+    try:
+        yield
+    finally:
+        _SCOPE.dtype = prev
+
+
+def scope_dtype() -> Optional[torch.dtype]:
+    """The storage dtype of the open scope, None for float32."""
+    return getattr(_SCOPE, "dtype", None)
+
+
+def _cast(x: torch.Tensor, w: torch.Tensor):
+    dtype = scope_dtype()
+    if dtype is None:
+        return x, w
+    return x.to(dtype), w.to(dtype)
+
 
 def apply_compute_dtype(*cfgs) -> None:
-    """Set the conv/matmul precision of the configs' ``compute_dtype``.
-    For "float32", the only value the port takes (bfloat16 is ROADMAP
-    A10), cuDNN convolutions and cuBLAS matmuls run in full f32: torch
-    lets cuDNN use TF32 by default, whose 10-bit mantissa the f32
-    reference does not have.  The flags are process-wide, as the JAX
-    package's scope is for its trace."""
+    """Check the configs' ``compute_dtype`` and make their f32 parts true
+    f32: torch lets cuDNN use TF32 by default, whose 10-bit mantissa the
+    f32 reference does not have, so cuDNN convolutions and cuBLAS matmuls
+    are set to full f32.  The flags are process-wide.  A bfloat16 config
+    needs them too: its text fusions, heads and the convolutions that do
+    not read the scope stay f32 (JAX ``gan_layers.py:182-185``,
+    ``backbones.py:271-296``); its bf16 convolutions open
+    ``compute_dtype_scope`` where the engines and ``RMI.extract_visual``
+    run them."""
     for cfg in cfgs:
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r}: the port computes in "
-                "float32 only; bfloat16 is ROADMAP item A10")
+        if cfg.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: expected "
+                             "'float32' or 'bfloat16'")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -50,6 +97,7 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
            rate: int = 1) -> torch.Tensor:
     """SAME conv, x [N, H, W, C] NHWC, w [O, I, kh, kw]; ``rate`` > 1 is
     atrous convolution."""
+    x, w = _cast(x, w)
     ph = same_pads(x.shape[1], w.shape[2], stride, rate)
     pw = same_pads(x.shape[2], w.shape[3], stride, rate)
     xn = x.permute(0, 3, 1, 2)
@@ -68,20 +116,28 @@ def pad1_conv4(x: torch.Tensor, w: torch.Tensor, stride: int) -> torch.Tensor:
     stride 1 the output is one pixel smaller than the input."""
     if w.shape[2:] != (4, 4):
         raise ValueError(f"pad1_conv4 takes a 4x4 kernel, got {tuple(w.shape)}")
+    x, w = _cast(x, w)
     y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=stride, padding=1)
     return y.permute(0, 2, 3, 1)
 
 
-def conv2d_transpose(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """TF's SAME 4x4/2 transposed conv (``tf.nn.conv2d_transpose``; JAX
-    ``ops/conv.py:122-156``), x [N, H, W, C] -> [N, 2H, 2W, O]; w
-    [in, out, 4, 4], the JAX HWIO kernel transposed by (2, 3, 0, 1).  JAX
-    runs it as an input-dilated conv with the flipped kernel and pads
-    (2, 2); ``conv_transpose2d`` with padding 1 is the same sum."""
-    if w.shape[2:] != (4, 4):
-        raise ValueError(f"conv2d_transpose takes a 4x4 kernel, got "
-                         f"{tuple(w.shape)}")
-    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=2, padding=1)
+def conv2d_transpose(x: torch.Tensor, w: torch.Tensor,
+                     stride: int = 2) -> torch.Tensor:
+    """TF's SAME transposed conv (``tf.nn.conv2d_transpose``; JAX
+    ``ops/conv.py:120-157``), x [N, H, W, C] -> [N, stride H, stride W, O];
+    w [in, out, k, k], the JAX HWIO kernel transposed by (2, 3, 0, 1).  JAX
+    runs it as an input-dilated conv with the flipped kernel, padded
+    (k - 1 - lo, k - 1 - hi) with lo = (k - stride) // 2;
+    ``conv_transpose2d`` with padding lo is the same sum when k - stride
+    is even (4/2 in the GANs and FCN-8s, 16/8 in FCN-8s' full head)."""
+    k = w.shape[2]
+    if w.shape[3] != k or (k - stride) % 2 or k < stride:
+        raise ValueError(f"conv2d_transpose takes a square kernel with an "
+                         f"even k - stride, got {tuple(w.shape)} at stride "
+                         f"{stride}")
+    x, w = _cast(x, w)
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, stride=stride,
+                           padding=(k - stride) // 2)
     return y.permute(0, 2, 3, 1)
 
 

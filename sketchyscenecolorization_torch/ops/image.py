@@ -8,6 +8,8 @@ which samples at half-pixel centres but, when it shrinks, antialiases: it
 widens the triangle kernel by 1/scale and renormalises the weights, which
 ``F.interpolate(align_corners=False)`` does not do.  It too is two dense
 matmuls, with the weights ``jax.image.scale_and_translate`` computes.
+``resize_bilinear_align_corners`` (TF ``align_corners=True``, DeepLab-v3+'s
+decoder) is built the same way.
 """
 from __future__ import annotations
 
@@ -97,3 +99,34 @@ def resize_bilinear_half_pixel(x: torch.Tensor, out_h: int,
         mw = torch.from_numpy(_half_pixel_bilinear_matrix(w, out_w))
         x = torch.einsum("ow,nhwc->nhoc", mw.to(x.device), x)
     return x
+
+
+@lru_cache(maxsize=64)
+def _align_corners_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Dense [out_size, in_size] matrix of TF resize_bilinear with
+    ``align_corners=True``, src = dst * (in - 1) / (out - 1) (JAX
+    ``ops/image.py:77-92``)."""
+    if out_size == 1 or in_size == 1:
+        m = np.zeros((out_size, in_size), dtype=np.float32)
+        m[:, 0] = 1.0
+        return m
+    scale = (in_size - 1) / (out_size - 1)
+    src = np.arange(out_size, dtype=np.float64) * scale
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    frac = src - lo
+    m = np.zeros((out_size, in_size), dtype=np.float32)
+    m[np.arange(out_size), lo] += (1.0 - frac).astype(np.float32)
+    m[np.arange(out_size), hi] += frac.astype(np.float32)
+    return m
+
+
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int,
+                                  out_w: int) -> torch.Tensor:
+    """TF resize_bilinear with ``align_corners=True`` (reference
+    ``deeplab_v3plus_model.py:533,820``; JAX ``ops/image.py:95-101``) as two
+    interpolation matmuls, [N, H, W, C] -> [N, out_h, out_w, C]."""
+    mh = torch.from_numpy(_align_corners_matrix(x.shape[1], out_h))
+    mw = torch.from_numpy(_align_corners_matrix(x.shape[2], out_w))
+    y = torch.einsum("oh,nhwc->nowc", mh.to(x.device), x)
+    return torch.einsum("ow,nhwc->nhoc", mw.to(x.device), y)

@@ -349,14 +349,14 @@ def check_cuda_tensors(name: str, floats, ints=()) -> None:
     wrappers: ``floats`` f32 and 16-byte aligned, ``ints`` int32, all
     contiguous on one CUDA device."""
     tensors = (*floats, *ints)
-    dev = tensors[0].device
-    if dev.type != "cuda" or any(x.device != dev for x in tensors):
-        raise ValueError(f"{name}: all inputs must be on one CUDA device, "
-                         f"got {[str(x.device) for x in tensors]}")
     if any(x.dtype != torch.float32 for x in floats) \
             or any(x.dtype != torch.int32 for x in ints):
         raise TypeError(f"{name}: expected float32 tensors and int32 "
                         f"flags, got {[x.dtype for x in tensors]}")
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(x.device != dev for x in tensors):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device, "
+                         f"got {[str(x.device) for x in tensors]}")
     if not all(x.is_contiguous() for x in tensors):
         raise ValueError(f"{name}: inputs must be contiguous, got strides "
                          f"{[x.stride() for x in tensors]}")

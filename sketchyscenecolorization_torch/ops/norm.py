@@ -7,6 +7,11 @@ it, the statistics reduce over (H, W) only, so a K-row batch equals K
 single-row calls (JAX ``ops/norm.py:33-59``).  Spectral normalization is
 the plain function of JAX ``ops/norm.py:102-124``: the caller keeps the
 power-iteration vector ``u`` and decides when to store its update.
+
+The batch-stats norms and ``l2_normalize`` compute their statistics in
+f32 and return at the input dtype (JAX ``ops/norm.py:62-99``), so a bf16
+activation stream under the compute-dtype scope stays bf16; for f32 input
+the casts are no-ops.
 """
 from __future__ import annotations
 
@@ -22,6 +27,11 @@ def frozen_batch_norm(x, mean, var, beta, gamma, factor, eps: float = 0.001):
     return x * inv + (beta - m * inv)
 
 
+def _wide(x: torch.Tensor) -> torch.Tensor:
+    """x at f32 or wider (bf16 -> f32; f32 and f64 unchanged)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def _stats(x: torch.Tensor, per_sample: bool):
     dims = (1, 2) if per_sample else (0, 1, 2)
     var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
@@ -31,9 +41,10 @@ def _stats(x: torch.Tensor, per_sample: bool):
 def batch_stats_norm(x, offset, scale, eps: float = 1e-5,
                      per_sample: bool = False):
     """Per-channel batch statistics over (N, H, W), or (H, W) per sample."""
-    mean, var = _stats(x, per_sample)
+    xs = _wide(x)
+    mean, var = _stats(xs, per_sample)
     inv = scale * (1.0 / torch.sqrt(var + eps))
-    return (x - mean) * inv + offset
+    return ((xs - mean) * inv + offset).to(x.dtype)
 
 
 def conditional_batch_stats_norm(x, labels, offset_table, scale_table,
@@ -42,17 +53,19 @@ def conditional_batch_stats_norm(x, labels, offset_table, scale_table,
 
     x: [N, H, W, C]; labels: [N] int; offset/scale tables: [n_labels, C].
     """
-    mean, var = _stats(x, per_sample)
+    xs = _wide(x)
+    mean, var = _stats(xs, per_sample)
     offset = offset_table[labels][:, None, None, :]
     scale = scale_table[labels][:, None, None, :]
-    return (x - mean) / torch.sqrt(var + eps) * scale + offset
+    return ((xs - mean) / torch.sqrt(var + eps) * scale + offset).to(x.dtype)
 
 
 def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
     """tf.nn.l2_normalize: x * rsqrt(max(sum(x^2), eps)).  The floor is on
     the SQUARED sum; ``F.normalize`` floors the norm instead."""
-    sum_sq = torch.sum(x * x, dim=dim, keepdim=True)
-    return x * torch.rsqrt(torch.clamp_min(sum_sq, eps))
+    xs = _wide(x)
+    sum_sq = torch.sum(xs * xs, dim=dim, keepdim=True)
+    return x * torch.rsqrt(torch.clamp_min(sum_sq, eps)).to(x.dtype)
 
 
 def _sn_l2norm(v, eps: float = 1e-12):

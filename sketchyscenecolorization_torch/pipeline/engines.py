@@ -7,7 +7,11 @@ session and runs it under ``torch.no_grad``.  The host entry points
 NumPy; the serving entry points (``FGColorizeEngine.colorize_rows_dev``,
 ``BGColorizeEngine.colorize_composited``/``colorize_composited_gradient``/
 ``finish_gradient``, ``sky_detect_trace``) keep their results on the
-device, where the session's device compositing reads them.
+device, where the session's device compositing reads them.  Each engine
+runs its model under the compute-dtype scope of its config (JAX
+``engines.py:41-58,129-137,195-198,322-324,449-490``), so engines of
+either dtype serve side by side; a bf16 model's outputs are cast to f32
+before they are quantized.
 """
 from __future__ import annotations
 
@@ -19,8 +23,8 @@ import numpy as np
 import torch
 
 from ..config import BGGanConfig, FGGanConfig, MatchingConfig
-from ..models.fg_gan import MRUGenerator
 from ..models.rmi import RMI
+from ..ops.conv import compute_dtype_scope
 from ..text import colorization_encode, matching_encode
 from . import compositing as comp
 
@@ -76,10 +80,7 @@ class MatchingEngine:
             .astype(np.float32)
         visual = self.model.extract_visual(
             torch.from_numpy(image[None]).to(self.device))
-        words, lens = self.encode_texts(input_texts)
-        up = self.model.apply_fused(
-            visual, torch.from_numpy(words.astype(np.int64)).to(self.device),
-            torch.from_numpy(lens.astype(np.int64)).to(self.device)).up
+        up = self.fuse_logits(visual, *self.encode_texts(input_texts))
         predicts = (up[..., 0].cpu().numpy() >= self.score_thresh) \
             .astype(np.float32)
         return predicts * self.binarize_drawing(sketch_image_uint8)[None]
@@ -88,6 +89,17 @@ class MatchingEngine:
     def extract_visual_dev(self, image_dev: torch.Tensor) -> torch.Tensor:
         """Backbone features of the mean-subtracted [1, H, W, 3] image."""
         return self.model.extract_visual(image_dev)
+
+    @torch.no_grad()
+    def fuse_logits(self, visual, words: np.ndarray,
+                    lens: np.ndarray) -> torch.Tensor:
+        """``up`` logits [M, H, W, 1] of M encoded instructions against
+        the features of one sketch (JAX ``_fuse``, ``engines.py:54-58``),
+        under the config's compute-dtype scope; on the device."""
+        words_t = torch.from_numpy(np.asarray(words, np.int64)).to(self.device)
+        lens_t = torch.from_numpy(np.asarray(lens, np.int64)).to(self.device)
+        with compute_dtype_scope(self.cfg.compute_dtype):
+            return self.model.apply_fused(visual, words_t, lens_t).up
 
     @torch.no_grad()
     def score_instances(self, image_dev, words: np.ndarray, lens: np.ndarray,
@@ -101,9 +113,7 @@ class MatchingEngine:
         the reference (JAX ``engines.py:162``)."""
         if visual_dev is None:
             visual_dev = self.model.extract_visual(image_dev)
-        words_t = torch.from_numpy(np.asarray(words, np.int64)).to(self.device)
-        lens_t = torch.from_numpy(np.asarray(lens, np.int64)).to(self.device)
-        up = self.model.apply_fused(visual_dev, words_t, lens_t).up
+        up = self.fuse_logits(visual_dev, words, lens)
         pred = (up[..., 0] >= self.score_thresh).float() \
             * bin_drawing_dev[None]                              # [M, H, W]
         inter = pred.reshape(pred.shape[0], -1) @ inst_masks_dev.T  # [M, N]
@@ -112,8 +122,8 @@ class MatchingEngine:
 
 
 class FGColorizeEngine:
-    """FG MRU generator over a batch of instances (``fg_color_utils.py:253-265``;
-    JAX ``engines.py:170-394``).
+    """FG generator (MRU, Pix2Pix or Residual) over a batch of instances
+    (``fg_color_utils.py:253-265``; JAX ``engines.py:170-394``).
 
     The noise rows come from ``noise_source(k) -> [k, noise_dim]``, by
     default the engine's own CPU ``torch.Generator`` seeded with ``seed``,
@@ -126,7 +136,7 @@ class FGColorizeEngine:
 
     MAX_GAN_ROWS = 128      # largest generator batch; larger runs chunk
 
-    def __init__(self, cfg: FGGanConfig, model: MRUGenerator,
+    def __init__(self, cfg: FGGanConfig, model: torch.nn.Module,
                  vocab: Dict[str, int], seed: int = 0, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
@@ -208,7 +218,8 @@ class FGColorizeEngine:
             noise = torch.cat([noise, noise.new_zeros((pad, noise.shape[1]))])
             tok = torch.cat([tok, tok.new_zeros((pad, tok.shape[1]))])
             ids = torch.cat([ids, ids.new_zeros((pad,))])
-        out = self.model(x, tok, ids, noise, per_sample=True)
+        with compute_dtype_scope(self.cfg.compute_dtype):
+            out = self.model(x, tok, ids, noise, per_sample=True).float()
         return (((out + 1.0) / 2.0) * 255.0).to(torch.uint8)  # truncates,
                                                               # as astype
 
@@ -306,10 +317,11 @@ class BGColorizeEngine:
         tokens = colorization_encode(text, self.vocab, self.cfg.max_len)
         # preprocess_examples (bg main :101-114), in f32 on the host
         x = fg_image_uint8[None].astype(np.float32) / 255.0 * 2.0 - 1.0
-        result = self.model(
-            torch.from_numpy(x).to(self.device),
-            torch.tensor([tokens], dtype=torch.long, device=self.device))
-        out = result[0] if self.cfg.residual_enc_g else result
+        with compute_dtype_scope(self.cfg.compute_dtype):
+            result = self.model(
+                torch.from_numpy(x).to(self.device),
+                torch.tensor([tokens], dtype=torch.long, device=self.device))
+        out = (result[0] if self.cfg.residual_enc_g else result).float()
         # deprocess (bg main :29-38): TF's convert_image_dtype scales by
         # 255.5 and saturates, then the cast truncates
         out_u8 = ((out + 1.0) / 2.0 * 255.5).clamp(0, 255).to(torch.uint8)
@@ -339,9 +351,11 @@ class BGColorizeEngine:
         # the host path's row-major layout, so that the convolutions choose
         # the same algorithms and sum alike
         x = self._unit_table[fg.to(torch.int64)].contiguous()[None]
-        result = self.model(
-            x, torch.tensor([tokens], dtype=torch.long, device=self.device))
-        out = result[0] if self.cfg.residual_enc_g else result
+        with compute_dtype_scope(self.cfg.compute_dtype):
+            result = self.model(
+                x, torch.tensor([tokens], dtype=torch.long,
+                                device=self.device))
+        out = (result[0] if self.cfg.residual_enc_g else result).float()
         out_u8 = ((out + 1.0) / 2.0 * 255.5).clamp(0, 255).to(torch.uint8)[0]
         bg = torch.where(innerb, fg, out_u8)
         return torch.where(drawings[..., None], moved_u8, bg)

@@ -40,8 +40,7 @@ import numpy as np
 import torch
 
 from ..config import FGGanConfig
-from ..models.fg_gan import (MRUDiscriminator, MRUGenerator,
-                             build_discriminator, build_generator)
+from ..models.fg_gan import build_discriminator, build_generator
 from ..models.gan_layers import commit_sn
 from ..models.inception_v4 import InceptionV4, perceptual_loss
 from .losses import (acgan_focal_loss, dragan_losses, fc_weight_decay_loss,
@@ -57,8 +56,8 @@ G_CLIP, D_CLIP = (50.0, 5.0), (100.0, 10.0)
 
 @dataclasses.dataclass
 class FGGanTrainState:
-    generator: MRUGenerator
-    discriminator: MRUDiscriminator   # its buffers are the sn vectors
+    generator: torch.nn.Module
+    discriminator: torch.nn.Module   # its buffers are the sn vectors
     g_opt: AdamState
     d_opt: AdamState
     step: int = 0
@@ -79,10 +78,13 @@ class FGGanTrainState:
 
 
 def build_models(cfg: FGGanConfig, seed: int = 0):
-    """(generator, discriminator) of ``cfg``, fresh from ``seed``.  Only
-    ``block_type="MRU"`` is ported: ``build_generator`` and
-    ``build_discriminator`` raise on the variants
-    (ROADMAP A10)."""
+    """(generator, discriminator) of ``cfg``, fresh from ``seed``: the MRU
+    pair (with ``num_blocks`` cells a stage and, without ``lstm_hybrid``,
+    no text fusion) or the Pix2Pix or Residual variant by
+    ``cfg.block_type`` (JAX ``train/fg_gan.py:45-75``).  The variants'
+    discriminators take no ``proj_d`` and always return class logits; their
+    one spectral-normed layer is ``ac_logits``, whose ``u`` the G update
+    commits as for MRU."""
     return (build_generator(cfg, torch.Generator().manual_seed(2 * seed)),
             build_discriminator(cfg,
                                 torch.Generator().manual_seed(2 * seed + 1)))

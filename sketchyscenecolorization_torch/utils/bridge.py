@@ -3,14 +3,18 @@ modules.
 
 The port's modules name their submodules and parameters after the JAX
 trees' keys: the functional dicts of ``models/deeplab.py``,
-``models/rmi.py:84-127`` and ``models/inception_v4.py`` (the slim scope
-paths; the heads' 2-D ``weights`` are ``[fan_in, n]`` on both sides), and
-the flax ``params`` trees of ``MRUGenerator`` and the BG generators.  A leaf at ``a/b/c`` in a tree is the entry
+``models/backbones.py``, ``models/rmi.py:84-127`` and
+``models/inception_v4.py`` (the slim scope paths; the heads' 2-D
+``weights`` are ``[fan_in, n]`` on both sides), and the flax ``params``
+trees of the FG generators and discriminators (MRU and the variants) and
+the BG generators.  A leaf at ``a/b/c`` in a tree is the entry
 ``a.b.c`` of the module's ``state_dict``.  Every 4-D leaf is a conv kernel,
 HWIO in JAX.  Here it is OIHW, unless the module that owns it names
 another layout in a ``FROM_HWIO`` attribute (the transposed conv's
-``[in, out, kh, kw]``).  The owner decides, not the shape: a transposed
-conv with as many inputs as outputs has the same shape either way.
+``[in, out, kh, kw]``, a depthwise conv's ``[C, 1, kh, kw]``), or lists the
+leaf in ``NHWC_LEAVES`` (a learnable NHWC state, kept as it is).  The owner
+decides, not the shape: a transposed conv with as many inputs as outputs
+has the same shape either way.
 
 The flax ``sn`` collection (the spectral-norm vectors of the FG
 discriminator) maps 1:1 onto the module's buffers, the only buffers the
@@ -45,8 +49,13 @@ def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, Any]:
 
 
 def _from_hwio(module: nn.Module, key: str):
-    """The permutation from a JAX kernel to the 4-D leaf ``key``."""
-    owner = module.get_submodule(key.rpartition(".")[0])
+    """The permutation from a JAX kernel to the 4-D leaf ``key``; a leaf
+    that its owner lists in ``NHWC_LEAVES`` (a learnable activation, such
+    as the MRU cells' initial states) keeps its layout."""
+    path, _, leaf = key.rpartition(".")
+    owner = module.get_submodule(path)
+    if leaf in getattr(owner, "NHWC_LEAVES", ()):
+        return (0, 1, 2, 3)
     return getattr(owner, "FROM_HWIO", _HWIO_TO_OIHW)
 
 

@@ -6,7 +6,8 @@ compositing on) and runs one BG and one FG command on the synthetic
 fixtures, takes one matching, one FG GAN and one BG GAN train step, runs
 the word-attention and
 RecurAttn fusions once, the Inception-v4 perceptual loss and the
-evaluation's metrics, and ``python -m sketchyscenecolorization_torch
+evaluation's metrics, the SegNet matcher at bfloat16 and a train step of
+the Residual FG variant, and ``python -m sketchyscenecolorization_torch
 --help`` runs.  Its own copies of the JAX package's jax-free modules
 (``config``, ``text``, ``data``) agree with the originals."""
 import dataclasses
@@ -44,6 +45,8 @@ SCRIPT = textwrap.dedent("""
     import sketchyscenecolorization_torch.models.inception_v4
     import sketchyscenecolorization_torch.train.eval_procedures
     import sketchyscenecolorization_torch.models.bg_gan
+    import sketchyscenecolorization_torch.models.backbones
+    import sketchyscenecolorization_torch.models.fg_gan_variants
     import sketchyscenecolorization_torch.ops.recur_attn
     import sketchyscenecolorization_torch.utils.visualization
     from sketchyscenecolorization_torch.config import (
@@ -116,6 +119,16 @@ SCRIPT = textwrap.dedent("""
             up = RMI(MatchingConfig(**kw))(batch["image"], batch["words"].long(),
                                            batch["seq_len"].long()).up
         assert up.shape == (1, 32, 32, 1) and torch.isfinite(up).all()
+    kw = dict(matching.__dict__, backbone="segnet", compute_dtype="bfloat16")
+    with torch.no_grad():
+        up = RMI(MatchingConfig(**kw))(batch["image"], batch["words"].long(),
+                                       batch["seq_len"].long()).up
+    assert up.dtype == torch.float32 and torch.isfinite(up).all()
+    res = FGGanConfig(batch_size=2, image_size=32, vocab_size=16, max_len=4,
+                      base_channels=4, noise_dim=8, block_type="Residual")
+    res_state, metrics = make_fg_gan_train_step(res)(
+        create_fg_gan_state(res, device="cpu"), fg_batch, fg_batch)
+    assert res_state.step == 1 and not bool(metrics["nan"])
     from sketchyscenecolorization_torch.evaluation import (
         MatchingEvaluator, inception_score)
     from sketchyscenecolorization_torch.models.inception_v4 import (

@@ -118,8 +118,10 @@ def test_variant_up_logits_match_jax(variant):
 
 
 def test_unported_backbones_and_unknown_fusions_are_refused():
-    with pytest.raises(NotImplementedError, match="A10"):
-        RMI(tconfig.MatchingConfig(**CFG_KW, backbone="segnet"))
+    """Every backbone of the JAX package is ported
+    (``tests/test_torch_backbones.py``); another name is refused."""
+    with pytest.raises(ValueError, match="backbone"):
+        RMI(tconfig.MatchingConfig(**CFG_KW, backbone="vgg16"))
     with pytest.raises(ValueError, match="fusion_type"):
         RMI(tconfig.MatchingConfig(**CFG_KW, fusion_type="Concat"))
 
