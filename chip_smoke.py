@@ -152,7 +152,23 @@ and prints no result):
      ``cli_fg_gan --block_type`` at the default ``FGGanConfig``, 4 steps
      resumed to 6, reported as in 11; path ``serve_fg_variants``: a routed
      FG command from a session on each trained variant generator;
- 15. print the kernels line (six kernels: launches per path, times, the
+ 15. the converters and offline tools (A12): path ``color_tf1``, a
+     session on converted weights at the default full width: synthetic TF1
+     npz exports (seeded NumPy, TF layouts, named by the port's maps) of
+     the matching model (DeepLab-v2 ResNet-101 and the RMI head, ~170 MB),
+     the MRU FG generator and the ``multi_residual`` BG generator, through
+     ``scripts/torch_real_weight_parity.py:build_parity_session`` (strict
+     conversion; every npz name consumed, every leaf read back from the
+     card bit-equal to the converted array), the mixed FG/BG sequence of
+     ``run_and_report`` with the FG commands routed, warm routed FG and
+     warm BG commands (walls, B1 by shape, peak memory), outputs finite and
+     unlike the fresh-weight session's; path ``train_matching_pretrained``:
+     the port's ``matching_data_generation`` and ``vocabulary_generation``
+     on the synthetic corpus's GT, then ``cli_matching --mode train
+     --pretrained_npz`` on the matching export's backbone for 4 steps (the
+     snapshot's ResNet bit-equal to the npz, every text leaf moved; step
+     walls, B1 and B2 in one profiled step);
+ 16. print the kernels line (six kernels: launches per path, times, the
      f32 and 3xTF32 bounds, device ms by launch kind, HMMA counts),
      the card's name and power limit, and last ``{"ok": true, "device":
      {...}}``.
@@ -2076,6 +2092,40 @@ def profile_step(step, state, batch):
     return state, metrics, wall, kernels
 
 
+def instrumented_matching_step(mlstm, make_step, records, profiled,
+                               trained, profiled_step):
+    """A stand-in for ``harness.make_matching_train_step`` whose steps
+    append (wall s, B1 launches, B2 launches, cost, cls_loss, words) to
+    ``records``, keep the newest state's module in ``trained["model"]`` and
+    run step ``profiled_step`` under ``torch.profiler`` (its kernels and
+    wall into ``profiled``)."""
+    import torch
+
+    def instrumented(step_cfg):
+        step = make_step(step_cfg)
+
+        def timed(state, batch):
+            trained["model"] = state.model
+            fwd, bwd = mlstm.mlstm_cuda.launches, mlstm.mlstm_bwd_cuda.launches
+            if len(records) + 1 == profiled_step:
+                state, metrics, wall, kernels = profile_step(step, state,
+                                                             batch)
+                profiled.update(kernels=kernels, wall=wall)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            records.append((wall, mlstm.mlstm_cuda.launches - fwd,
+                            mlstm.mlstm_bwd_cuda.launches - bwd,
+                            float(metrics["cost"]), float(metrics["cls_loss"]),
+                            int((batch["words"] != 0).sum())))
+            return state, metrics
+        return timed
+    return instrumented
+
+
 def full_width_training(mlstm):
     """``cli_matching --mode train`` at the default full-width config on a
     synthetic corpus, then resumed.  Returns ({"mlstm_fwd": launches,
@@ -2102,33 +2152,10 @@ def full_width_training(mlstm):
 
     records, profiled, trained = [], {}, {}
     make_step = harness.make_matching_train_step
-
-    def instrumented(step_cfg):
-        step = make_step(step_cfg)
-
-        def timed(state, batch):
-            trained["model"] = state.model
-            fwd, bwd = mlstm.mlstm_cuda.launches, mlstm.mlstm_bwd_cuda.launches
-            if len(records) + 1 == PROFILED_STEP:
-                state, metrics, wall, kernels = profile_step(step, state,
-                                                             batch)
-                profiled.update(kernels=kernels, wall=wall)
-            else:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, metrics = step(state, batch)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            records.append((wall, mlstm.mlstm_cuda.launches - fwd,
-                            mlstm.mlstm_bwd_cuda.launches - bwd,
-                            float(metrics["cost"]), float(metrics["cls_loss"]),
-                            int((batch["words"] != 0).sum())))
-            return state, metrics
-        return timed
-
     torch.cuda.reset_peak_memory_stats()
     reset_counts()                                                 # path
-    harness.make_matching_train_step = instrumented
+    harness.make_matching_train_step = instrumented_matching_step(
+        mlstm, make_step, records, profiled, trained, PROFILED_STEP)
     try:
         cli_matching.main(argv + ["--max_iteration", str(TRAIN_STEPS)])
         first = latest_checkpoint(os.path.join(run_dir, "snapshots"))
@@ -3761,6 +3788,360 @@ def serve_fg_variants(build_session, runs):
     return counts
 
 
+# the converted session's mixed FG/BG sequence (FG commands routed), then
+# warm routed FG and warm BG commands on it
+TF1_SEQUENCE = ["the bus is yellow with gray windows",
+                "the sky is blue and the ground is green", "the car is red",
+                "the grass is green", "the sky is orange"]
+TF1_WARM_FG = ["the bus is purple", "the car is pink", "the grass is olive",
+               "the bus is orange", "the car is white"]
+TF1_WARM_BG = ["the sky is cyan", "the ground is brown", "the sky is red",
+               "the ground is yellow", "the sky is blue"]
+TF1_ROUTES = {t: NOUN_ROUTES[t.split()[1]] for t in
+              TF1_SEQUENCE + TF1_WARM_FG if t.split()[1] in NOUN_ROUTES}
+PRETRAINED_STEPS = 4    # cli_matching --pretrained_npz steps; the last one
+                        # runs under torch.profiler
+
+
+def _leaf(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def synth_tf_vars(name_map, template, seed, swap=lambda name: False):
+    """Seeded TF1-shaped variables for ``name_map``: shapes from the
+    ``template`` tree (the JAX layout), filters named by ``swap`` in TF's
+    transposed-conv layout [kh, kw, out, in]; BN gammas and scales near 1,
+    variances and factors positive."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for name, path in name_map.items():
+        shape = np.shape(_leaf(template, path))
+        if swap(name):
+            shape = shape[:2] + (shape[3], shape[2])
+        value = np.asarray(rng.standard_normal(shape), np.float32) * 0.05
+        leaf = name.rsplit("/", 1)[-1]
+        if leaf in ("variance", "factor"):
+            value = np.abs(value) + 1.0
+        elif leaf in ("gamma", "scale"):
+            value = value + 1.0
+        out[name] = value.astype(np.float32)
+    return out
+
+
+def write_tf1_exports(tmp, session, cfg):
+    """Synthetic TF1 npz exports of the matching model, the FG and the BG
+    generator at ``cfg``'s widths (shapes from ``session``'s models), named
+    by the port's maps.  Returns {kind: (path, name map)}."""
+    from sketchyscenecolorization_torch.utils import tf1_converter as cvt
+    from sketchyscenecolorization_torch.utils.bridge import export_jax_tree
+    fg_template = export_jax_tree(session.fg.model)
+    specs = {
+        "matching": (cvt.matching_name_map(cfg.matching),
+                     session.matching.model, lambda name: False),
+        "fg": (cvt.fg_generator_name_map(fg_template), session.fg.model,
+               lambda name: False),
+        "bg": (cvt.bg_generator_name_map(cfg.bg_gan.multi_residual),
+               session.bg.model, lambda name: "/deconv/filter" in name),
+    }
+    out = {}
+    for seed, (kind, (name_map, model, swap)) in enumerate(specs.items()):
+        path = os.path.join(tmp, f"{kind}_tf1.npz")
+        np.savez(path, **synth_tf_vars(name_map, export_jax_tree(model),
+                                       seed, swap))
+        out[kind] = (path, name_map)
+    return out
+
+
+def _model_outputs(session, state, eligible):
+    """The matching ``up`` logits, the FG generator on the eligible
+    instances and the BG generator on the sketch, on the card."""
+    import torch
+    dev, f, b = session.device, session.cfg.fg_gan, session.cfg.bg_gan
+    k = len(eligible)
+    with torch.no_grad():
+        words, lens = session.matching.encode_texts(["the bus"])
+        up = session.matching.fuse_logits(
+            session.matching.extract_visual_dev(state.image_dev), words, lens)
+        rows = torch.from_numpy(np.stack(
+            [state.prepared_instance(i, f.image_size) for i in eligible]))
+        gen = torch.Generator().manual_seed(4)
+        fg = session.fg.model(
+            rows.to(dev), torch.ones(k, f.max_len, dtype=torch.long).to(dev),
+            torch.zeros(k, dtype=torch.long).to(dev),
+            torch.randn(k, f.noise_dim, generator=gen).to(dev),
+            per_sample=True)
+        x = torch.from_numpy(state.sketch.astype(np.float32) / 127.5 - 1.0)
+        bg = session.bg.model(x[None].to(dev),
+                              torch.ones(1, b.max_len, dtype=torch.long)
+                              .to(dev))[0]
+    return {"up": up.cpu().numpy(), "fg": fg.cpu().numpy(),
+            "bg": bg.cpu().numpy()}
+
+
+def color_tf1(card):
+    """Path ``color_tf1``: a session on converted TF1 weights at the
+    default full width.  Synthetic TF1 npz exports (seeded, TF layouts) of
+    the matching model (DeepLab-v2 ResNet-101 and the RMI head), the MRU
+    FG generator and the ``multi_residual`` BG generator go through
+    ``scripts/torch_real_weight_parity.py:build_parity_session``
+    (strict conversion, the weight bridge); every npz name is consumed,
+    every leaf read back from the card equals the converted array bit for
+    bit, the mixed FG/BG sequence runs through ``run_and_report`` with the
+    FG commands routed, then warm routed FG and warm BG commands; outputs
+    are finite and differ from the fresh-weight session's.  Returns (the
+    path's launch counts, the matching npz)."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_real_weight_parity as rwp
+    from sketchyscenecolorization_torch.utils.bridge import (export_jax_tree,
+                                                             flatten_tree)
+    tmp = tempfile.mkdtemp(prefix="smoke_tf1_")
+    examples = os.path.join(tmp, "examples")
+    cfg = rwp.parity_config(examples, "")
+    eligible = write_scene(examples, cfg.pipeline.image_size)
+
+    t0 = time.perf_counter()
+    fresh = rwp.build_parity_session(data_base_dir=examples,
+                                     out_dir=os.path.join(tmp, "fresh"))
+    torch.cuda.synchronize()
+    fresh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exports = write_tf1_exports(tmp, fresh, cfg)
+    write_s = time.perf_counter() - t0
+    sizes = {k: os.path.getsize(p) for k, (p, _) in exports.items()}
+    templates = {"matching": None, "fg": export_jax_tree(fresh.fg.model),
+                 "bg": None}
+    converted, convert_s = {}, {}
+    for kind, (path, name_map) in exports.items():
+        with np.load(path) as z:
+            names = set(z.files)
+        if names != set(name_map):
+            raise AssertionError(f"{kind}: npz names not consumed: "
+                                 f"{sorted(names ^ set(name_map))[:5]}")
+        t0 = time.perf_counter()
+        converted[kind] = rwp.convert_npz(kind, path, cfg, templates[kind])
+        convert_s[kind] = time.perf_counter() - t0
+    log(f"color_tf1: synthetic TF1 npz exports (seeded, written in "
+        f"{write_s:.1f} s): "
+        + ", ".join(f"{k} {v / 1e6:.1f} MB ({len(exports[k][1])} names)"
+                    for k, v in sizes.items())
+        + "; strict conversion (host: npz read + renames) "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in convert_s.items()))
+
+    out_dir = os.path.join(tmp, "converted")
+    t0 = time.perf_counter()
+    session = rwp.build_parity_session(
+        exports["matching"][0], exports["fg"][0], exports["bg"][0], examples,
+        out_dir)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    models = {"matching": session.matching.model, "fg": session.fg.model,
+              "bg": session.bg.model}
+    n_leaves = 0
+    for kind, module in models.items():
+        got, want = flatten_tree(export_jax_tree(module)), \
+            flatten_tree(converted[kind])
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"{kind}: module leaves "
+                                 f"{sorted(set(got) ^ set(want))[:5]} "
+                                 "not converted")
+        for path, leaf in want.items():
+            if got[path].dtype != leaf.dtype or \
+                    not np.array_equal(got[path], leaf):
+                raise AssertionError(f"{kind} {path} differs from the npz")
+        n_leaves += len(want)
+    log(f"  build_parity_session: {build_s:.3f} s with the three npz "
+        f"(conversion + load into the card's modules) against "
+        f"{fresh_s:.3f} s fresh; {n_leaves} leaves read back from the card "
+        "equal the converted arrays bit for bit")
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                    # path starts
+    with b1_shapes() as tally:
+        t0 = time.perf_counter()
+        report = rwp.run_and_report(routed(session, TF1_ROUTES, match=True),
+                                    IMAGE_ID, TF1_SEQUENCE, out_dir)
+        torch.cuda.synchronize()
+        seq_s = time.perf_counter() - t0
+        walls = {"fg": [], "bg": []}
+        for fg_text, bg_text in zip(TF1_WARM_FG, TF1_WARM_BG):
+            for kind, text in (("fg", fg_text), ("bg", bg_text)):
+                t0 = time.perf_counter()
+                session.colorize(IMAGE_ID, text)
+                torch.cuda.synchronize()
+                walls[kind].append((time.perf_counter() - t0) * 1e3)
+        session.flush()
+    counts = read_counts()                            # path ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    fresh_report = rwp.run_and_report(
+        routed(fresh, TF1_ROUTES, match=True), IMAGE_ID, TF1_SEQUENCE,
+        os.path.join(tmp, "fresh"))
+    fresh.flush()
+    from PIL import Image
+    same = []
+    for ours, theirs in zip(report["outputs"], fresh_report["outputs"]):
+        a = np.array(Image.open(os.path.join(out_dir, ours)))
+        b = np.array(Image.open(os.path.join(tmp, "fresh", theirs)))
+        if a.shape != (cfg.pipeline.image_size,) * 2 + (3,):
+            raise AssertionError(f"{ours}: shape {a.shape}")
+        if np.array_equal(a, b):
+            same.append(ours)
+    if same:
+        raise AssertionError(f"converted outputs equal the fresh ones: {same}")
+    state = session._state(IMAGE_ID)
+    outs = _model_outputs(session, state, eligible)
+    fresh_outs = _model_outputs(fresh, fresh._state(IMAGE_ID), eligible)
+    for name, value in outs.items():
+        if not np.isfinite(value).all() or np.allclose(value,
+                                                       fresh_outs[name]):
+            raise AssertionError(f"converted {name} output not finite or "
+                                 "equal to the fresh one")
+
+    m = cfg.matching
+    rmi = (1, m.vf_h * m.vf_w, m.m_rnn_size)
+    bg_shape = (1, (cfg.bg_gan.image_size // 32) ** 2,
+                text_fusion_hidden(session.bg.model))
+    fg_h = text_fusion_hidden(session.fg.model)
+    fg_b1 = sum(v for k, v in tally.items() if k[2] == fg_h and k[0] != "B2")
+    if not (tally[rmi] and tally[bg_shape] and fg_b1):
+        raise AssertionError(f"B1 launches by shape {dict(tally)}: expected "
+                             "the RMI, FG and BG shapes")
+    log(f"  mixed sequence {TF1_SEQUENCE} (FG routed {TF1_ROUTES}, masks "
+        f"dumped): {seq_s:.3f} s cold; outputs {report['outputs']} differ "
+        f"from the fresh-weight session's, model outputs finite")
+    log(f"  warm routed FG commands with the matching forward: median "
+        f"{np.median(walls['fg']):.1f} ms ({min(walls['fg']):.1f}-"
+        f"{max(walls['fg']):.1f}); warm BG commands: median "
+        f"{np.median(walls['bg']):.1f} ms ({min(walls['bg']):.1f}-"
+        f"{max(walls['bg']):.1f}); peak device memory {peak:.2f} GiB; "
+        f"{card}")
+    log(f"  launches {counts}; B1 by (N, P, H) {dict(tally)}")
+    session.close()
+    fresh.close()
+    return counts, exports["matching"][0]
+
+
+def train_matching_pretrained(mlstm, matching_npz):
+    """Path ``train_matching_pretrained``: the offline tools into training
+    at the default full width.  The port's ``matching_data_generation``
+    (categories from a ``colorMapC46.mat``) and ``vocabulary_generation``
+    make ``sentence_instance_train.json`` and the vocabulary from the
+    synthetic corpus's GT, then ``cli_matching --mode train
+    --pretrained_npz`` on the backbone of ``matching_npz`` for
+    PRETRAINED_STEPS steps: the snapshot's ResNet leaves equal the npz bit
+    for bit (``train_fusion_var_only`` freezes them), every text leaf moved
+    from the fresh init.  Returns the path's launch counts."""
+    import scipy.io
+    import torch
+    from sketchyscenecolorization_torch import cli_matching, dataprep
+    from sketchyscenecolorization_torch.config import MatchingConfig
+    from sketchyscenecolorization_torch.dataprep.caption_engine import \
+        load_categories_map
+    from sketchyscenecolorization_torch.models.rmi import RMI
+    from sketchyscenecolorization_torch.train import harness
+    from sketchyscenecolorization_torch.utils.checkpoint import (
+        latest_checkpoint, restore_checkpoint)
+    cfg = MatchingConfig()
+    if not cfg.train_fusion_var_only:
+        raise AssertionError("the default config trains the backbone")
+    tmp = tempfile.mkdtemp(prefix="smoke_pretrained_")
+    write_matching_corpus(tmp, cfg.H)
+    names = {c: n for c, n, _ in INSTANCES}
+    cm = np.empty((46, 2), dtype=object)
+    for i in range(46):
+        cm[i, 0] = np.array([names.get(i + 1, f"others{i}")])
+        cm[i, 1] = np.array([[120, 120, 120]], np.uint8)
+    scipy.io.savemat(os.path.join(tmp, "colorMapC46.mat"), {"colorMap": cm})
+    categories = load_categories_map(tmp)
+    t0 = time.perf_counter()
+    res = dataprep.matching_data_generation(
+        tmp, ["train"], [categories[i + 1] for i in range(46)], save_dir=tmp,
+        image_counts={"train": 2})["train"]
+    vocab_path = os.path.join(tmp, "vocab.txt")
+    vocab = dataprep.vocabulary_generation(
+        [os.path.join(tmp, "sentence_instance_train.json")], vocab_path)
+    gen_s = time.perf_counter() - t0
+    if [e["key"] for e in res] != [1, 2] or len(vocab) > cfg.vocab_size:
+        raise AssertionError(f"generated {res}, vocabulary {vocab}")
+    n_sent = sum(len(e["sen_instIdx_map"]) for e in res)
+    log(f"train_matching_pretrained: matching_data_generation + "
+        f"vocabulary_generation on 2 synthetic {cfg.H}^2 GT scenes: "
+        f"{n_sent} sentences, {len(vocab)} tokens, {gen_s:.2f} s (host); "
+        f"e.g. {list(res[0]['sen_instIdx_map'].items())[:3]}")
+
+    with np.load(matching_npz) as z:
+        backbone = {k: z[k] for k in z.files if k.startswith("ResNet/")}
+    npz = os.path.join(tmp, "backbone_tf1.npz")
+    np.savez(npz, **backbone)
+    run_dir = os.path.join(tmp, "run")
+    argv = ["--mode", "train", "--data_base_dir", tmp, "--captions_base_dir",
+            tmp, "--vocab_path", vocab_path, "--run_dir", run_dir,
+            "--pretrained_npz", npz, "--max_iteration", str(PRETRAINED_STEPS)]
+    records, profiled, trained = [], {}, {}
+    make_step = harness.make_matching_train_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()                                    # path starts
+    harness.make_matching_train_step = instrumented_matching_step(
+        mlstm, make_step, records, profiled, trained, PRETRAINED_STEPS)
+    try:
+        cli_matching.main(argv)
+    finally:
+        harness.make_matching_train_step = make_step
+    launches = read_counts()                          # path ends
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    if len(records) != PRETRAINED_STEPS:
+        raise AssertionError(f"{len(records)} steps ran")
+    for i, (_, fwd, bwd, cost, cls, _) in enumerate(records):
+        if fwd < 1 or bwd < 1 or not np.isfinite([cost, cls]).all():
+            raise AssertionError(f"step {i + 1}: {fwd} B1 and {bwd} B2 "
+                                 f"launches, cost {cost}, cls_loss {cls}")
+    step, path = latest_checkpoint(os.path.join(run_dir, "snapshots"))
+    saved = restore_checkpoint(path, map_location="cpu")["model"]
+    from sketchyscenecolorization_torch.utils.tf1_converter import \
+        matching_name_map
+    for name, tree_path in matching_name_map(cfg).items():
+        if name not in backbone:
+            continue
+        want = backbone[name]
+        if want.ndim == 4:
+            want = want.transpose(3, 2, 0, 1)
+        if not np.array_equal(saved[".".join(tree_path)].numpy(), want):
+            raise AssertionError(f"{name} differs from the npz after "
+                                 "training")
+    init = RMI(cfg, torch.Generator().manual_seed(0)).state_dict()
+    still = [k for k, v in saved.items() if k.startswith("text_sketchyscene.")
+             and torch.equal(v, init[k])]
+    if step != PRETRAINED_STEPS or still:
+        raise AssertionError(f"snapshot step {step}; text leaves at their "
+                             f"init: {still}")
+    walls = [r[0] for r in records]
+    warm = walls[1:PRETRAINED_STEPS - 1]
+    kernels = profiled["kernels"]
+    total = sum(kernels.values())
+    b2_ms, b1_ms = (sum(v for k, v in kernels.items()
+                        if any(n in k for n in names_))
+                    for names_ in (B2_NAMES, B1_NAMES))
+    if total <= 0 or b1_ms <= 0 or b2_ms <= 0:
+        raise AssertionError("torch.profiler saw no device time for B1/B2")
+    log(f"  cli_matching --mode train --pretrained_npz ({len(backbone)} "
+        f"ResNet variables, {os.path.getsize(npz) / 1e6:.1f} MB): "
+        f"{PRETRAINED_STEPS} steps, losses "
+        + ", ".join(f"{r[3]:.1f}/{r[4]:.1f}" for r in records)
+        + f"; launches per step (B1, B2) {[(r[1], r[2]) for r in records]}; "
+        f"snapshot at step {step}: {len(backbone)} backbone leaves equal the "
+        f"npz bit for bit, every text leaf moved")
+    log(f"  step wall: first {walls[0]:.3f} s, median warm "
+        f"{np.median(warm) * 1e3:.1f} ms ({', '.join(f'{w * 1e3:.1f}' for w in warm)}); "
+        f"profiled step {PRETRAINED_STEPS}: device {total:.2f} ms, B1 "
+        f"{b1_ms:.2f} ms, B2 {b2_ms:.2f} ms (wall {profiled['wall'] * 1e3:.1f}"
+        f" ms with the profiler); peak device memory {peak:.2f} GiB")
+    return launches
+
+
 def release():
     """Free what the last phase dropped (the engines' noise sources are
     reference cycles, so a dropped session waits for the collector), so
@@ -3967,6 +4348,16 @@ def main() -> int:
     paths.update(variant_paths)
     paths["serve_fg_variants"] = serve_fg_variants(build_session,
                                                    variant_runs)
+    del variant_runs
+    release()
+    t0 = time.perf_counter()
+    paths["color_tf1"], matching_npz = color_tf1(card)
+    log(f"color_tf1: {time.perf_counter() - t0:.1f} s")
+    release()
+    t0 = time.perf_counter()
+    paths["train_matching_pretrained"] = train_matching_pretrained(
+        mlstm, matching_npz)
+    log(f"train_matching_pretrained: {time.perf_counter() - t0:.1f} s")
 
     by_kernel = {k: {path: c[k] for path, c in paths.items() if c[k]}
                  for k in kernel_counters()}

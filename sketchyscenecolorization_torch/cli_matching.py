@@ -21,8 +21,10 @@ unless ``--no_mask_ap``, the instance mAP over
 predicts the mask of ``--instruction`` on ``<data_base_dir>/<dataset>/
 DRAWING_GT/L0_sample<image_id>.png`` at ``--image_size`` and writes its
 overlay to ``<run_dir>/visualize/L0_sample<image_id>_pred.png``.
-Restoring the released backbone (``--pretrained_npz``) is ROADMAP A12
-(converters) and raises ``NotImplementedError``.
+In ``--mode train``, ``--pretrained_npz`` overlays a TF1 npz export
+(``scripts/export_tf1_checkpoint.py``; a backbone-only one is the
+reference's pretrained restore) onto the fresh parameters before
+training, through ``utils/tf1_converter.py`` and the weight bridge.
 """
 from __future__ import annotations
 
@@ -63,9 +65,6 @@ def make_parser():
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
-    if args.pretrained_npz:
-        raise NotImplementedError(
-            "--pretrained_npz (TF1 converter) is ROADMAP item A12")
     s = args.model_scale
     cfg = MatchingConfig(backbone=args.backbone, vocab_size=args.vocab_size,
                          max_len=args.max_len, max_iters=args.max_iteration,
@@ -90,12 +89,26 @@ def main(argv=None) -> int:
 
     from .data import MatchingTrainDataset
     from .train import train_matching
+    if args.pretrained_npz:
+        restore_pretrained(model, cfg, args.pretrained_npz)
     ds = MatchingTrainDataset(
         os.path.join(args.data_base_dir, "train"),
         os.path.join(args.captions_base_dir, "sentence_instance_train.json"),
         vocab, max_len=cfg.max_len, seed=args.seed)
     train_matching(cfg, ds, model, args.run_dir, device=args.device)
     return 0
+
+
+def restore_pretrained(model, cfg: MatchingConfig, npz_path: str) -> None:
+    """JAX ``cli_matching.py:70-75``: the converted TF1 variables of
+    ``npz_path`` overlaid onto ``model``'s parameters (a partial export
+    leaves the rest as they are)."""
+    from .utils.bridge import export_jax_tree, load_jax_tree
+    from .utils.tf1_converter import (convert_matching, load_tf_vars_npz,
+                                      merge_converted)
+    converted = convert_matching(load_tf_vars_npz(npz_path), cfg)
+    load_jax_tree(model, merge_converted(export_jax_tree(model), converted))
+    print("restored pretrained backbone from", npz_path)
 
 
 def restored_engine(args, cfg: MatchingConfig, model, vocab):

@@ -10,9 +10,9 @@ under ``fg_ckpt_dir`` and ``bg_ckpt_dir`` (the ``snapshot`` directory of a
 ``train_fg_gan``/``train_bg_gan`` run; the discriminators and moments in
 it are not read).  A missing or empty directory leaves the fresh
 parameters, as in JAX.  A step directory without ``state.pt`` (an orbax
-snapshot of the JAX package) raises: reading those is ROADMAP A12.  A JAX
-parameter tree can be loaded into the built models with
-``utils.bridge.load_jax_tree``.
+snapshot of the JAX package) raises: ``scripts/orbax_to_torch.py``
+converts those (on the CPU, with JAX installed).  A JAX parameter tree can
+be loaded into the built models with ``utils.bridge.load_jax_tree``.
 """
 from __future__ import annotations
 
@@ -54,9 +54,9 @@ def _newest_snapshot(ckpt_dir: str):
     if found is None:
         return None
     if not os.path.isfile(os.path.join(found[1], STATE_FILE)):
-        raise NotImplementedError(
-            f"{found[1]} has no {STATE_FILE}: reading the JAX package's orbax "
-            "snapshots is ROADMAP item A12")
+        raise ValueError(
+            f"{found[1]} has no {STATE_FILE}: if it is an orbax snapshot of "
+            "the JAX package, convert it with scripts/orbax_to_torch.py")
     return found[0], restore_checkpoint(found[1], map_location="cpu")
 
 

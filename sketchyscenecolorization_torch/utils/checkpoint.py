@@ -5,8 +5,9 @@ in place of orbax).
 ``<root>/step_<n>/state.pt`` holds one ``torch.save``d mapping of tensors
 and numbers; ``latest_checkpoint`` finds the newest step for resume.  A
 step directory is written under a temporary name and renamed into place,
-so a run cut short never leaves a half-written snapshot behind.  Reading
-the JAX package's orbax snapshots is the converters' work (ROADMAP A12).
+so a run cut short never leaves a half-written snapshot behind.
+``scripts/orbax_to_torch.py`` converts the JAX package's orbax snapshots
+into this layout.
 """
 from __future__ import annotations
 

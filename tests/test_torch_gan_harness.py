@@ -9,8 +9,8 @@ on the CPU at small sizes:
 - every mode of ``cli_fg_gan`` (train, val, test, inference) and
   ``cli_bg_gan`` (train, test) with ``--device cpu``, at narrow widths;
 - ``build_session`` restoring both generators from the port's snapshots,
-  then serving a BG and a FG command; an orbax step directory raises
-  (ROADMAP A12);
+  then serving a BG and a FG command; an orbax step directory raises,
+  naming ``scripts/orbax_to_torch.py``;
 - every entry point (``build_session``, the four CLIs' ``main`` with
   ``--device cpu`` at narrow widths, the three trainers) turns TF32 off
   for cuDNN and cuBLAS, with both flags on before it."""
@@ -300,7 +300,7 @@ def test_session_serves_trained_generators(tmp_path):
                                        "7_1.png").endswith("7_2.png")
 
     os.makedirs(os.path.join(fg_ckpt, "step_9"))          # orbax-style
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="orbax_to_torch"):
         build_session(cfg, seed=0, device="cpu")
 
 

@@ -8,8 +8,12 @@ the word-attention and
 RecurAttn fusions once, the Inception-v4 perceptual loss and the
 evaluation's metrics, the SegNet matcher at bfloat16 and a train step of
 the Residual FG variant, and ``python -m sketchyscenecolorization_torch
---help`` runs.  Its own copies of the JAX package's jax-free modules
-(``config``, ``text``, ``data``) agree with the originals."""
+--help`` runs.  The offline tools (``dataprep``, ``utils/tf1_converter``,
+``scripts/torch_real_weight_parity.py``) import and run with both blocked
+too, and ``scripts/orbax_to_torch.py`` converts an orbax snapshot with the
+JAX package blocked (orbax itself needs ``jax``).  Its own copies of the
+JAX package's jax-free modules (``config``, ``text``, ``data``) agree with
+the originals."""
 import dataclasses
 import os
 import subprocess
@@ -166,6 +170,97 @@ def test_port_imports_and_builds_without_jax(tmp_path):
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "--instructions" in proc.stdout
+
+
+OFFLINE_SCRIPT = textwrap.dedent("""
+    import os
+    import sys
+    for blocked in ("jax", "flax", "sketchyscenecolorization_tpu"):
+        sys.modules[blocked] = None      # any import of them now raises
+    import numpy as np
+    from sketchyscenecolorization_torch import dataprep
+    from sketchyscenecolorization_torch.utils import tf1_converter as cvt
+    from sketchyscenecolorization_torch.utils import visualization
+    sys.path.insert(0, "scripts")
+    import torch_real_weight_parity as rwp
+    base = sys.argv[1]
+    items = dataprep.init_all_items([[10, 10, 200, 300], [300, 40, 500, 200]],
+                                    [1, 2], {1: "bus", 2: "tree"})
+    caption, _, sen_map = dataprep.SceneDescriber(items).get_text()
+    assert "bus" in caption and len(sen_map) == caption.count(".")
+    cfg = rwp.parity_config(base, base)
+    names = cvt.bg_generator_name_map(cfg.bg_gan.multi_residual)
+    path = os.path.join(base, "bg.npz")
+    np.savez(path, **{n: np.zeros((2, 2, 3, 1), np.float32) for n in names})
+    tree = rwp.convert_npz("bg", path, cfg, None)
+    assert tree["decoder_1_deconv"]["filter"].shape == (2, 2, 1, 3)
+    img = np.zeros((8, 8, 3), np.uint8)
+    visualization.visualize_inst_seg(img, np.ones((8, 8, 1)), "",
+                                     os.path.join(base, "inst.png"))
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                           "sketchyscenecolorization_tpu")
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    print("ok offline")
+""")
+
+ORBAX_SCRIPT = textwrap.dedent("""
+    import runpy
+    import sys
+    sys.modules["sketchyscenecolorization_tpu"] = None
+    sys.argv = ["orbax_to_torch.py"] + sys.argv[1:]
+    try:
+        runpy.run_path("scripts/orbax_to_torch.py", run_name="__main__")
+    except SystemExit as e:
+        assert not e.code, e.code
+    loaded = sorted(m for m in sys.modules
+                    if m.split(".")[0] == "sketchyscenecolorization_tpu"
+                    and sys.modules[m] is not None)
+    assert not loaded, loaded
+    print("ok orbax")
+""")
+
+
+def test_offline_tools_run_without_jax(tmp_path):
+    import json
+
+    import orbax.checkpoint as ocp
+    import torch
+
+    from sketchyscenecolorization_torch.models import bg_gan
+    from sketchyscenecolorization_torch.utils.bridge import export_jax_tree
+    from sketchyscenecolorization_torch.utils.checkpoint import \
+        restore_checkpoint
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", OFFLINE_SCRIPT,
+                           str(tmp_path)], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok offline"
+
+    # a BG train state as orbax restores it (nested dicts of arrays)
+    kw = dict(image_size=32, vocab_size=16, ngf=4, ndf=4,
+              multi_residual=False)
+    cfg = tconfig.BGGanConfig(**kw)
+    gen = bg_gan.build_generator(cfg, torch.Generator().manual_seed(1))
+    disc = bg_gan.build_discriminator(cfg, torch.Generator().manual_seed(2))
+    with ocp.PyTreeCheckpointer() as ckptr:
+        ckptr.save(str(tmp_path / "orbax" / "step_2"),
+                   {"g_params": export_jax_tree(gen),
+                    "d_params": export_jax_tree(disc),
+                    "step": np.asarray(2, np.int32)})
+    proc = subprocess.run(
+        [sys.executable, "-c", ORBAX_SCRIPT, "--kind", "bg", "--orbax_dir",
+         str(tmp_path / "orbax"), "--out_dir", str(tmp_path / "torch"),
+         "--config", json.dumps(kw)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok orbax"
+    saved = restore_checkpoint(str(tmp_path / "torch" / "step_2"))
+    assert saved["step"] == 2
+    for name, value in gen.state_dict().items():
+        assert torch.equal(saved["generator"][name], value), name
 
 
 def test_config_copy_matches_jax():

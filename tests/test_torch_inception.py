@@ -4,7 +4,8 @@ package on the CPU.
 
 Mirrors of ``tests/test_inception.py`` (the two ``RUN_SLOW`` ones stay
 gated; the converter's two tests become the bridge's round trip and the
-conv-table subgraph check, since the TF1 converter is ROADMAP A12), and
+conv-table subgraph check here, and the port's converter is held against
+JAX's in ``tests/test_torch_tf1_converter.py``), and
 against JAX with bridged weights, with the tolerances stated:
 - every endpoint of the full network with its Logits head at the reduced
   171^2 input, BN statistics set away from 0/1: max-abs error over the

@@ -104,9 +104,9 @@ def test_unreadable_snapshots_raise(trained, tmp_path):
     tmp, run_dir, _ = trained
     fg = tmp_path / "fg"
     (fg / "step_3").mkdir(parents=True)          # a GAN step without state.pt
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="orbax_to_torch"):
         build_session(_framework(tmp, fg_ckpt_dir=fg), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="orbax_to_torch"):
         build_session(_framework(tmp, bg_ckpt_dir=fg), device="cpu")
     with pytest.raises(ValueError, match="generator"):   # not a GAN run's
         build_session(_framework(tmp, fg_ckpt_dir=os.path.join(
@@ -114,7 +114,7 @@ def test_unreadable_snapshots_raise(trained, tmp_path):
     orbax = tmp_path / "orbax"
     shutil.copytree(os.path.join(run_dir, "snapshots"), orbax)
     (orbax / "step_7" / "default").mkdir(parents=True)   # no state.pt
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(ValueError, match="orbax_to_torch"):
         build_session(_framework(tmp, match_ckpt_dir=orbax), device="cpu")
 
 
@@ -146,9 +146,12 @@ def test_cli_matching_inference_writes_prediction(trained, capsys):
     want = t_viz.semantic_overlay(sketch, engine.predict_mask(sketch,
                                                               "the bus"))
     np.testing.assert_array_equal(np.array(Image.open(out)), want)
-    with pytest.raises(NotImplementedError, match="A12"):
+    # as in JAX, only --mode train reads --pretrained_npz (no such file here)
+    with pytest.raises(SystemExit, match="needs --image_id"):
         cli_matching.main(["--mode", "inference", "--pretrained_npz",
-                           "tf_vars.npz", "--device", "cpu"])
+                           "tf_vars.npz", "--image_size", str(SIZE),
+                           "--model_scale", str(SCALE), "--vocab_path", VOCAB,
+                           "--device", "cpu"])
 
 
 @pytest.fixture(scope="module")
