@@ -168,7 +168,32 @@ and prints no result):
      --pretrained_npz`` on the matching export's backbone for 4 steps (the
      snapshot's ResNet bit-equal to the npz, every text leaf moved; step
      walls, B1 and B2 in one profiled step);
- 16. print the kernels line (six kernels: launches per path, times, the
+ 16. parallelism (A13), ranks spawned with ``parallel/launch.py`` (the
+     ``spawn`` start method; every collective times out after 120 s, and a
+     failed rank fails the script): path ``train_dp_nccl``, world size 1
+     on NCCL, ``train_matching`` at the default full width on a 1x1 mesh
+     for 3 steps, against the single-process steps on the batches it took;
+     then two ranks on the one card over gloo (NCCL refuses two ranks on
+     one device): paths ``train_fg_dp2`` (the default ``FGGanConfig``,
+     batch 2, one row a rank, 3 steps), ``train_bg_dp2`` (768^2, batch 2,
+     2 steps) and ``matching_tp2`` (``shard_mlstm_pixels`` at data=1,
+     model=2: P = 9216 split 4608 a rank; the forward and two steps of the
+     default fusion, one step of each variant), each against its
+     single-process twin on rank 0 on the same global batches, state and
+     draws (the GANs' twin steps each from a copy of the mesh's state,
+     the matching twin free-running; losses rtol 2e-4, then 5e-4; the FG
+     discriminator's first moments after step 1 within the CPU tests'
+     2e-2, the other moments printed beside the card's own spread; ``up``
+     within 1e-5; the gradient of mLSTM.w, which holds W_h, within 1e-4
+     of its largest), the ranks' parameters bit-equal
+     after every step; step walls, the gradient all-reduce's ms a step,
+     each rank's peak memory, B1-B6 launches by N and P; path
+     ``serve_dp``: the FG engine at full width with ``serve_devices`` =
+     [cuda:0, cuda:0] against the unsharded engine (noise stream
+     bit-equal, u8 within 1 LSB) and a session with
+     ``serve_gan_data_parallel=2`` on the one card (one device, as JAX
+     falls back) serving a routed FG command;
+ 17. print the kernels line (six kernels: launches per path, times, the
      f32 and 3xTF32 bounds, device ms by launch kind, HMMA counts),
      the card's name and power limit, and last ``{"ok": true, "device":
      {...}}``.
@@ -2101,8 +2126,8 @@ def instrumented_matching_step(mlstm, make_step, records, profiled,
     wall into ``profiled``)."""
     import torch
 
-    def instrumented(step_cfg):
-        step = make_step(step_cfg)
+    def instrumented(step_cfg, *args, **kwargs):
+        step = make_step(step_cfg, *args, **kwargs)
 
         def timed(state, batch):
             trained["model"] = state.model
@@ -2396,8 +2421,8 @@ def variant_training(variant):
     records, profiled = [], {}
     make_step = harness.make_matching_train_step
 
-    def instrumented(step_cfg):
-        step = make_step(step_cfg)
+    def instrumented(step_cfg, *args, **kwargs):
+        step = make_step(step_cfg, *args, **kwargs)
 
         def timed(state, batch):
             before = read_counts()
@@ -4142,6 +4167,625 @@ def train_matching_pretrained(mlstm, matching_npz):
     return launches
 
 
+# ---------------------------------------------------- parallelism (A13)
+
+PAR_TIMEOUT_S = 120     # a collective that waits longer fails its rank
+PAR_STEPS = {"train_dp_nccl": 3, "train_fg_dp2": 3, "train_bg_dp2": 2}
+PAR_LOSS_RTOL, PAR_LOSS_RTOL_2 = 2e-4, 5e-4    # first step, later steps
+PAR_UP_TOL = 1e-5       # pixel-sharded ``up`` against unsharded, relative
+# the gradient of mLSTM.w (Adam's first moment after the first TP step:
+# W_h's cotangent, summed over 'model' by the sharded backward) against the
+# twin's, over its largest magnitude, as tests/test_torch_train_matching.py
+# holds gradients.  Not the updated weight: Adam's first update of an
+# element whose gradient is near eps moves by a large part of lr on a
+# rounding difference of the gradient.
+PAR_TP_GRAD_REL = 1e-4
+# Adam's first moments after the first step against the single-process
+# twin: each leaf within PAR_GRAD_REL of its largest magnitude (floored at
+# 1e-3 of the model's largest), the CPU tests' tolerance
+# (tests/test_torch_parallel_gan.py).  Held where the update is the step's
+# first, from the same state on both sides: the FG discriminator's.  The FG
+# generator's update follows it: with Adam's b1 = 0 every D element moves
+# by +-lr, so a D gradient at rounding level that changes sign moves its
+# element 2 lr apart, and the G gradients then differ by more (printed,
+# with the count of such elements).  The BG moments are printed beside the
+# card's own spread (two twin steps from one state): cuDNN's f32
+# convolutions are not reproducible run to run, and the random-weight
+# multi_residual stack (ROADMAP C2) amplifies that past the CPU tolerance.
+PAR_GRAD_REL = 2e-2
+PAR_HELD_MOMENTS = {"train_fg_dp2": ("d",)}
+KERNEL_LABELS = {"mlstm_fwd": "B1", "mlstm_bwd": "B2", "mlstm_attn_fwd": "B3",
+                 "mlstm_attn_bwd": "B4", "recur_attn_fwd": "B5",
+                 "recur_attn_bwd": "B6"}
+
+
+@contextlib.contextmanager
+def launch_shapes():
+    """Yields a Counter of kernel launches by (kernel, N, P) while the
+    block runs, read from the first input each wrapper hands to
+    ``launch`` (the wrappers' own counts are untouched)."""
+    from sketchyscenecolorization_torch.ops import mlstm, recur_attn
+    tally, launch = collections.Counter(), mlstm.launch
+
+    def spy(name, device, *args):
+        tally[(name,) + tuple(args[0].shape[:2])] += 1
+        return launch(name, device, *args)
+    mlstm.launch = recur_attn.launch = spy
+    try:
+        yield tally
+    finally:
+        mlstm.launch = recur_attn.launch = launch
+
+
+def _sync(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _peak_gib(device):
+    import torch
+    if torch.device(device).type != "cuda":
+        return 0.0
+    return torch.cuda.max_memory_allocated(device) / 2 ** 30
+
+
+def _reset_peak(device):
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _timed_all_reduce(device):
+    """Time every gradient all-reduce of the train steps, synchronised;
+    returns the list of ms it appends to."""
+    from sketchyscenecolorization_torch.parallel import mesh as pmesh
+    from sketchyscenecolorization_torch.train import bg_gan, fg_gan, matching
+    times = []
+
+    def timed(grads, mesh):
+        _sync(device)
+        t0 = time.perf_counter()
+        out = pmesh.reduce_gradients(grads, mesh)
+        _sync(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    for module in (matching, fg_gan, bg_gan):
+        module.reduce_gradients = timed
+    return times
+
+
+def _ranks_equal(tensors):
+    """True on every rank when every rank's ``tensors`` (a dict, the same
+    names and shapes on each) hold rank 0's bits: rank 0 broadcasts them,
+    one flat buffer per dtype, and each rank compares exactly."""
+    import torch
+    import torch.distributed as dist
+    equal, device = True, None
+    for dtype in sorted({t.dtype for t in tensors.values()}, key=str):
+        flat = torch.cat([t.detach().reshape(-1) for _, t in
+                          sorted(tensors.items()) if t.dtype == dtype])
+        theirs = flat.clone()
+        dist.broadcast(theirs, 0)
+        equal = equal and torch.equal(flat, theirs)
+        device = flat.device
+    flag = torch.tensor([int(equal)], device=device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return bool(flag)
+
+
+def _moment_error(got, want):
+    """The largest per-leaf moment difference over the leaf's largest
+    magnitude, floored at 1e-3 of the model's largest: (error, leaf,
+    leaf's largest, model's largest) of the worst leaf."""
+    top = max(float(w.abs().max()) for w in want.values())
+    return max((float((got[k] - w).abs().max())
+                / max(float(w.abs().max()), 1e-3 * top), k,
+                float(w.abs().max()), top) for k, w in want.items())
+
+
+def _floats(metrics):
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _dp_path(rank, mesh, device, times, new_state, new_step, batches,
+             params, moments=None, leaves=None, forward=None,
+             twin_each_step=False):
+    """One path of ``dp2_rank``: every rank runs the mesh's steps on its
+    rows of the global ``batches`` from the same fresh state, timed and
+    synchronised; after each step ``params(state)`` (a dict of tensors)
+    must hold the same bits on every rank.  Rank 0 runs the
+    single-process twin (``new_step(None)``, whole global batches): with
+    ``twin_each_step`` from a copy of the mesh's state before each step
+    (each step held from the same state), else from a fresh state through
+    all the steps first (free-running).  Rank 0 compares after the first
+    step ``moments(state)`` (Adam's first moments, ``_moment_error``) and
+    ``leaves(state)`` (tensors: max-abs difference over the twin's largest
+    magnitude) with the twin's, and
+    ``forward(state, mesh)`` (the model's output before the steps) with
+    the unsharded one.  Only the mesh's launches are counted.  Returns
+    the path's record."""
+    import copy
+    import torch
+    import torch.distributed as dist
+    from sketchyscenecolorization_torch import parallel
+
+    def on_device(batch, rows):
+        if rows:
+            batch = parallel.shard_batch(batch, mesh)
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in batch.items()}
+
+    def clone(tree):
+        return {k: clone(v) if isinstance(v, dict) else v.detach().clone()
+                for k, v in tree.items()}
+
+    def twin_steps(state, steps, record=True):
+        step = new_step(None)
+        for i, batch in enumerate(steps):
+            state, metrics = step(state, *(on_device(b, False)
+                                           for b in batch))
+            if not record:
+                return state
+            rec["twin"].append(_floats(metrics))
+            if not rec["steps"] and i == 0:
+                twin.update(clone({"moments": moments(state) if moments
+                                   else {}, "leaves": leaves(state)
+                                   if leaves else {}}))
+        return state
+
+    rec, twin = {"twin": [], "steps": [], "peak_gib": 0.0}, {}
+    counts, shapes = collections.Counter(), collections.Counter()
+
+    def counted(fn):
+        reset_counts()                                     # path starts
+        with launch_shapes() as tally:
+            out = fn()
+        counts.update(read_counts())                       # path ends
+        shapes.update(tally)
+        return out
+
+    if rank == 0 and not twin_each_step:
+        state = new_state(twin=True)
+        if forward is not None:
+            twin["up"] = forward(state, None)
+        twin_steps(state, batches)
+        del state
+    state, step = new_state(twin=False), new_step(mesh)
+    if forward is not None:
+        _sync(device)
+        dist.barrier()
+        up = counted(lambda: forward(state, mesh))
+        if rank == 0:
+            rec["up_error"] = float((up - twin["up"]).abs().max()) / max(
+                1.0, float(twin["up"].abs().max()))
+    for i, batch in enumerate(batches):
+        if rank == 0 and twin_each_step:
+            twin_steps(copy.deepcopy(state), [batch])
+            if i == 0 and moments is not None:
+                # the card's own spread: the twin's step once more
+                again = twin_steps(copy.deepcopy(state), [batch], False)
+                rec["moment_spread"] = {
+                    side: _moment_error(m, twin["moments"][side])[0]
+                    for side, m in moments(again).items()}
+                del again
+        args = [on_device(b, True) for b in batch]
+        n = len(times)
+        _sync(device)
+        dist.barrier()
+        _reset_peak(device)
+        t0 = time.perf_counter()
+        state, metrics = counted(lambda: step(state, *args))
+        _sync(device)
+        wall = time.perf_counter() - t0
+        rec["peak_gib"] = max(rec["peak_gib"], _peak_gib(device))
+        rec["steps"].append({"wall": wall, "all_reduce_ms": sum(times[n:]),
+                             "metrics": _floats(metrics),
+                             "ranks_equal": _ranks_equal(params(state))})
+        if i == 0 and rank == 0 and moments is not None:
+            rec["moment_error"] = {
+                side: _moment_error(m, twin["moments"][side])
+                + (sum(int(((v > 0) != (twin["moments"][side][k] > 0)).sum())
+                       for k, v in m.items()),)
+                for side, m in moments(state).items()}
+        if i == 0 and rank == 0 and leaves is not None:
+            want = twin["leaves"]["p"]
+            rec["leaves"] = {
+                k: float((v.detach() - want[k]).abs().max())
+                / max(float(want[k].abs().max()), 1e-30)
+                for k, v in leaves(state)["p"].items()}
+    rec["counts"] = dict(counts)
+    rec["shapes"] = dict(shapes)
+    return rec
+
+
+def bg_batch(rng, bg):
+    """One BG step's batch at ``bg``'s shapes, seeded."""
+    s, b = bg.image_size, bg.batch_size
+    tokens = rng.randint(1, bg.vocab_size, (b, bg.max_len))
+    tokens[0, :2] = 0
+    return {"inputs": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+            "targets": rng.uniform(-1, 1, (b, s, s, 3)).astype(np.float32),
+            "tokens": tokens, "labels": rng.randint(0, 3, (b, s, s))}
+
+
+def dp2_rank(rank, out, spec):
+    """Two ranks on one device over gloo (NCCL refuses two ranks on one
+    card): paths ``train_fg_dp2`` and ``train_bg_dp2`` at data=2 (one row
+    of the global batch of 2 a rank) and ``matching_tp2`` at data=1,
+    model=2 (the RMI recurrences' pixels split over the two ranks), each
+    against its single-process twin on rank 0.  Writes
+    ``<out>/dp2_<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+    from sketchyscenecolorization_torch import parallel
+    from sketchyscenecolorization_torch.models.rmi import RMI
+    from sketchyscenecolorization_torch.ops.conv import apply_compute_dtype
+    from sketchyscenecolorization_torch.train import (
+        create_bg_gan_state, create_fg_gan_state, create_matching_state,
+        make_bg_gan_train_step, make_fg_gan_train_step,
+        make_matching_train_step)
+    kind = torch.device(spec["device"]).type
+    data2 = parallel.create_mesh(data=2, device_type=kind)
+    model2 = parallel.create_mesh(data=1, model=2, device_type=kind)
+    device = parallel.rank_device(spec["device"], data2)   # cuda:0 on one card
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    fg, bg, match = spec["fg"], spec["bg"], spec["matching"]
+    apply_compute_dtype(fg, bg, match)
+    times = _timed_all_reduce(device)
+    paths = {}
+
+    def gan_moments(state):
+        return {"g": state.g_opt.mu, "d": state.d_opt.mu}
+
+    def gan_params(state):
+        return {**{"g." + k: v for k, v in
+                   state.generator.state_dict().items()},
+                **{"d." + k: v for k, v in
+                   state.discriminator.state_dict().items()}}
+
+    def text_params(state):
+        return {k: v for k, v in state.model.state_dict().items()
+                if k.startswith("text_sketchyscene.")}
+
+    rng = np.random.RandomState(0)
+    paths["train_fg_dp2"] = _dp_path(
+        rank, data2, device, times,
+        lambda twin: create_fg_gan_state(fg, seed=0, device=device),
+        lambda mesh: make_fg_gan_train_step(fg, seed=1, mesh=mesh),
+        [(fg_small_batch(rng, fg), fg_small_batch(rng, fg))
+         for _ in range(PAR_STEPS["train_fg_dp2"])], gan_params,
+        moments=gan_moments, twin_each_step=True)
+    paths["train_bg_dp2"] = _dp_path(
+        rank, data2, device, times,
+        lambda twin: create_bg_gan_state(bg, seed=0, device=device),
+        lambda mesh: make_bg_gan_train_step(bg, mesh),
+        [(bg_batch(rng, bg),) for _ in range(PAR_STEPS["train_bg_dp2"])],
+        gan_params, moments=gan_moments, twin_each_step=True)
+
+    # matching_tp2: the forward and two steps of the default fusion, one
+    # step of each variant; the twins unsharded
+    batch = matching_batch(rng, match)
+
+    def forward(state, mesh):
+        b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+        with torch.no_grad(), parallel.set_mesh(mesh):
+            return state.model(b["image"], b["words"].long(),
+                               b["seq_len"]).up
+
+    def mlstm_w(state):
+        return {"p": {"mLSTM.w": state.mu["text_sketchyscene.mLSTM.w"]}}
+
+    tp = {}
+    for variant in ("",) + tuple(VARIANTS):
+        def config(sharded, variant=variant):
+            return dataclasses.replace(match, **VARIANTS.get(variant, {}),
+                                       shard_mlstm_pixels=sharded)
+
+        def new_state(twin, config=config):
+            model = RMI(config(not twin), torch.Generator().manual_seed(0))
+            return create_matching_state(model.to(device), config(not twin))
+        tp[variant or "default"] = _dp_path(
+            rank, model2, device, times, new_state,
+            lambda mesh, config=config: make_matching_train_step(
+                config(mesh is not None), mesh),
+            [(batch,)] * (2 if variant == "" else 1), text_params,
+            leaves=mlstm_w if variant == "" else None,
+            forward=forward if variant == "" else None)
+    paths["matching_tp2"] = tp
+    torch.save(paths, os.path.join(out, f"dp2_{rank}.pt"))
+
+
+def nccl_rank(rank, out, spec):
+    """World size 1 on NCCL, the production backend: ``train_matching``
+    on a ('data', 'model') = (1, 1) mesh at ``spec["matching"]`` for
+    PAR_STEPS steps on the synthetic corpus, each step timed, then the
+    single-process twin's steps on the batches the run took.  Writes
+    ``<out>/nccl_0.pt``."""
+    import torch
+    from sketchyscenecolorization_torch import parallel
+    from sketchyscenecolorization_torch.data import MatchingTrainDataset
+    from sketchyscenecolorization_torch.models.rmi import RMI
+    from sketchyscenecolorization_torch.text import load_vocab
+    from sketchyscenecolorization_torch.train import (
+        create_matching_state, harness, make_matching_train_step)
+    from sketchyscenecolorization_torch.utils.checkpoint import \
+        latest_checkpoint
+    device, cfg, corpus = spec["device"], spec["matching"], spec["corpus"]
+    steps = PAR_STEPS["train_dp_nccl"]
+    mesh = parallel.create_mesh(data=1,
+                                device_type=torch.device(device).type)
+    times = _timed_all_reduce(device)
+    ds = MatchingTrainDataset(
+        os.path.join(corpus, "train"),
+        os.path.join(corpus, "sentence_instance_train.json"),
+        load_vocab(os.path.join(ROOT, "data", "match_vocab.txt")),
+        max_len=cfg.max_len)
+    taken, rec = [], {"steps": []}
+    make = harness.make_matching_train_step
+
+    def instrumented(step_cfg, *args, **kwargs):
+        step = make(step_cfg, *args, **kwargs)
+
+        def timed(state, batch):
+            taken.append({k: v.cpu() for k, v in batch.items()})
+            n = len(times)
+            _sync(device)
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            _sync(device)
+            rec["steps"].append({"wall": time.perf_counter() - t0,
+                                 "all_reduce_ms": sum(times[n:]),
+                                 "metrics": _floats(metrics)})
+            return state, metrics
+        return timed
+
+    model = RMI(cfg, torch.Generator().manual_seed(0))
+    run_dir = os.path.join(out, "nccl_run")
+    _reset_peak(device)
+    reset_counts()                                         # path starts
+    harness.make_matching_train_step = instrumented
+    try:
+        with launch_shapes() as shapes:
+            harness.train_matching(cfg, ds, model, run_dir, log_every=steps,
+                                   max_iters=steps, device=device,
+                                   mesh=mesh)
+    finally:
+        harness.make_matching_train_step = make
+    rec["counts"] = read_counts()                          # path ends
+    rec["shapes"] = dict(shapes)
+    rec["peak_gib"] = _peak_gib(device)
+    rec["snapshot"] = latest_checkpoint(os.path.join(run_dir,
+                                                     "snapshots"))[0]
+    state = create_matching_state(
+        RMI(cfg, torch.Generator().manual_seed(0)).to(device), cfg)
+    step = make_matching_train_step(cfg)
+    rec["twin"] = []
+    for batch in taken:
+        state, metrics = step(state, {k: v.to(device)
+                                      for k, v in batch.items()})
+        rec["twin"].append(_floats(metrics))
+    torch.save(rec, os.path.join(out, f"nccl_{rank}.pt"))
+
+
+def _check_losses(name, steps, twin, keys):
+    """Each step's metrics against the twin's: rtol PAR_LOSS_RTOL at the
+    first step, PAR_LOSS_RTOL_2 later.  Returns the largest relative
+    difference."""
+    worst = 0.0
+    if len(steps) != len(twin):
+        raise AssertionError(f"{name}: {len(steps)} steps, twin "
+                             f"{len(twin)}")
+    for i, (got, want) in enumerate(zip(steps, twin)):
+        for key in keys:
+            g, w = got["metrics"][key], want[key]
+            err = abs(g - w) / max(abs(w), 1e-30)
+            worst = max(worst, err)
+            if not np.isfinite(g) or err > (PAR_LOSS_RTOL if i == 0
+                                            else PAR_LOSS_RTOL_2):
+                raise AssertionError(f"{name} step {i + 1} {key}: {g} "
+                                     f"against the twin's {w}")
+    return worst
+
+
+def _report_path(name, by_rank, keys):
+    """Check and print one path of ``dp2_rank``; returns its launch
+    counts summed over the ranks."""
+    first = by_rank[0]
+    worst = _check_losses(name, first["steps"], first["twin"], keys)
+    for i, step in enumerate(first["steps"]):
+        if not step["ranks_equal"]:
+            raise AssertionError(f"{name} step {i + 1}: the ranks' "
+                                 "parameters differ")
+    extra = []
+    for side, (err, leaf, leaf_max, top, flips) in sorted(
+            first.get("moment_error", {}).items()):
+        held = side in PAR_HELD_MOMENTS.get(name, ())
+        if held and err > PAR_GRAD_REL:
+            raise AssertionError(f"{name}: first moments of {side}.{leaf} "
+                                 f"{err:.2e} off the twin's")
+        extra.append(
+            f"first moments of {side}: worst {err:.2e} of its leaf's "
+            f"largest at {leaf} (leaf {leaf_max:.2e}, model {top:.2e}; "
+            + (f"held, tol {PAR_GRAD_REL}; " if held else "printed; ")
+            + f"the card's own spread {first['moment_spread'][side]:.2e}; "
+            f"{flips} elements of opposite sign)")
+    if "up_error" in first:
+        if first["up_error"] > PAR_UP_TOL:
+            raise AssertionError(f"{name}: up {first['up_error']:.2e} off")
+        extra.append(f"up {first['up_error']:.2e} of its largest (tol "
+                     f"{PAR_UP_TOL})")
+    for key, err in first.get("leaves", {}).items():
+        if err > PAR_TP_GRAD_REL:
+            raise AssertionError(f"{name}: the gradient of {key} {err:.2e} "
+                                 "off the twin's")
+        extra.append(f"the gradient of {key} (Adam's first moment) "
+                     f"{err:.2e} of its largest (tol {PAR_TP_GRAD_REL})")
+    counts = {k: sum(r["counts"][k] for r in by_rank) for k in first["counts"]}
+    shapes = collections.Counter()
+    for r in by_rank:
+        shapes.update(r["shapes"])
+    log(f"  {name}: losses {worst:.2e} off the single-process twin's "
+        f"(rtol {PAR_LOSS_RTOL}, then {PAR_LOSS_RTOL_2}); "
+        + "".join(e + "; " for e in extra) + "parameters bit-equal on the "
+        f"ranks after each of {len(first['steps'])} steps")
+    for rank, r in enumerate(by_rank):
+        log(f"    rank {rank}: step walls "
+            + ", ".join(f"{s['wall'] * 1e3:.1f}" for s in r["steps"])
+            + " ms; gradient all-reduce "
+            + ", ".join(f"{s['all_reduce_ms']:.2f}" for s in r["steps"])
+            + f" ms a step; peak {r['peak_gib']:.2f} GiB")
+    log(f"    launches (both ranks) by (kernel, N, P): "
+        + ", ".join(f"{KERNEL_LABELS[k]} N={n} P={p} x{v}"
+                    for (k, n, p), v in sorted(shapes.items())))
+    return counts
+
+
+def parallel_paths(card, device="cuda", spec=None):
+    """Paths ``train_dp_nccl`` (one rank, NCCL), ``train_fg_dp2``,
+    ``train_bg_dp2`` and ``matching_tp2`` (two ranks on one card, gloo),
+    each held against its single-process twin; returns {path: launch
+    counts}.  The ranks are spawned; a failed rank or collective fails the
+    phase."""
+    import torch
+    from sketchyscenecolorization_torch.config import (BGGanConfig,
+                                                       FGGanConfig,
+                                                       MatchingConfig)
+    from sketchyscenecolorization_torch.parallel.launch import run_ranks
+    out = tempfile.mkdtemp(prefix="smoke_parallel_")
+    if spec is None:
+        spec = {"device": device, "matching": MatchingConfig(),
+                "fg": FGGanConfig(), "bg": BGGanConfig(batch_size=2)}
+    spec["corpus"] = os.path.join(out, "corpus")
+    write_matching_corpus(spec["corpus"], spec["matching"].H)
+    cuda = torch.device(device).type == "cuda"
+    release()
+    paths = {}
+    t0 = time.perf_counter()
+    run_ranks(nccl_rank, 1, f"file://{out}/rendezvous_nccl", args=(out, spec),
+              backend="nccl" if cuda else "gloo", timeout_s=PAR_TIMEOUT_S)
+    rec = torch.load(os.path.join(out, "nccl_0.pt"), weights_only=False)
+    worst = _check_losses("train_dp_nccl", rec["steps"], rec["twin"],
+                          ("cost", "cls_loss"))
+    if rec["snapshot"] != PAR_STEPS["train_dp_nccl"]:
+        raise AssertionError(f"train_dp_nccl: snapshot {rec['snapshot']}")
+    log(f"path train_dp_nccl ({'NCCL' if cuda else 'gloo'}, world size 1, "
+        f"train_matching on a 1x1 mesh, {spec['matching'].H}^2): losses "
+        f"{worst:.2e} off the single-process twin's; step walls "
+        + ", ".join(f"{s['wall'] * 1e3:.1f}" for s in rec["steps"])
+        + " ms; gradient all-reduce "
+        + ", ".join(f"{s['all_reduce_ms']:.3f}" for s in rec["steps"])
+        + f" ms a step; peak {rec['peak_gib']:.2f} GiB; launches "
+        + ", ".join(f"{KERNEL_LABELS[k]} N={n} P={p} x{v}" for (k, n, p), v
+                    in sorted(rec["shapes"].items()))
+        + f"; {time.perf_counter() - t0:.1f} s")
+    paths["train_dp_nccl"] = rec["counts"]
+
+    t0 = time.perf_counter()
+    run_ranks(dp2_rank, 2, f"file://{out}/rendezvous_dp2", args=(out, spec),
+              backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    by_rank = [torch.load(os.path.join(out, f"dp2_{r}.pt"),
+                          weights_only=False) for r in range(2)]
+    log(f"two ranks on one {'card' if cuda else 'CPU'} over gloo "
+        f"({time.perf_counter() - t0:.1f} s):")
+    gan_keys = {"train_fg_dp2": ("loss_d", "loss_g", "recon_l1"),
+                "train_bg_dp2": ("discrim_loss", "gen_loss_GAN",
+                                 "gen_loss_L1", "region_mask_loss",
+                                 "gen_loss")}
+    for name, keys in gan_keys.items():
+        paths[name] = _report_path(name, [r[name] for r in by_rank], keys)
+    tp = collections.Counter()
+    for variant in ("default",) + tuple(VARIANTS):
+        tp.update(_report_path(
+            f"matching_tp2 ({variant})",
+            [r["matching_tp2"][variant] for r in by_rank],
+            ("cost", "cls_loss")))
+    paths["matching_tp2"] = dict(tp)
+    for name in ("train_fg_dp2", "train_bg_dp2"):
+        if cuda and not (paths[name]["mlstm_fwd"]
+                         and paths[name]["mlstm_bwd"]):
+            raise AssertionError(f"{name}: B1/B2 did not launch "
+                                 f"({paths[name]})")
+    idle = [KERNEL_LABELS[k] for k, v in paths["matching_tp2"].items()
+            if not v]
+    if cuda and idle:
+        raise AssertionError(f"matching_tp2: {idle} did not launch")
+    return paths
+
+
+def serve_dp(build_session, card):
+    """Path ``serve_dp``: the FG engine at the default width with
+    ``serve_devices=[cuda:0, cuda:0]`` (a bucket of 4 split into two
+    2-row shards) against the unsharded engine (noise stream bit-equal,
+    u8 within 1 LSB), and a session with ``serve_gan_data_parallel=2`` on
+    the one card, which falls back to one device, serving a routed FG
+    command.  Returns the path's launch counts."""
+    import torch
+    from PIL import Image
+    from sketchyscenecolorization_torch.config import FGGanConfig
+    from sketchyscenecolorization_torch.models import fg_gan
+    from sketchyscenecolorization_torch.pipeline.engines import \
+        FGColorizeEngine
+    cfg = FGGanConfig()
+    model = fg_gan.build_generator(cfg, torch.Generator().manual_seed(1))
+    vocab = {"<pad>": 0, "<unk>": 1}
+    single = FGColorizeEngine(cfg, model, vocab, seed=7, device="cuda")
+    split = FGColorizeEngine(cfg, model, vocab, seed=7, device="cuda",
+                             serve_devices=["cuda:0", "cuda:0"])
+    rng = np.random.RandomState(0)
+    s, k = cfg.image_size, 4
+    sketches = rng.uniform(-1, 1, (k, s, s, 3)).astype(np.float32)
+    ids = [1, 4, 2, 0]
+    toks = rng.randint(1, cfg.vocab_size, (k, cfg.max_len)).astype(np.int32)
+    walls = {"single": [], "split": []}
+    reset_counts()                                         # path starts
+    for _ in range(4):
+        for name, engine in (("split", split), ("single", single)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = engine.colorize_rows_dev(sketches, ids, toks)
+            torch.cuda.synchronize()
+            walls[name].append((time.perf_counter() - t0) * 1e3)
+            if name == "split":
+                got = out
+            else:
+                want = out
+    if not torch.equal(single._rng.get_state(), split._rng.get_state()):
+        raise AssertionError("serve_dp: the noise streams differ")
+    diff = (got.int() - want.int()).abs()
+    if int(diff.max()) > 1:
+        raise AssertionError(f"serve_dp: {int(diff.max())} LSB apart")
+
+    tmp = tempfile.mkdtemp(prefix="smoke_serve_dp_")
+    session_cfg = full_width_config(tmp, serve_gan_data_parallel=2)
+    eligible = write_scene(os.path.join(tmp, "examples"),
+                           session_cfg.pipeline.image_size)
+    session = routed(build_session(session_cfg, seed=0, device="cuda"),
+                     {"the bus is yellow": [eligible[0]]})
+    if session.fg.serve_devices is not None:
+        raise AssertionError("one card: the session should serve on one "
+                             "device")
+    result = session.colorize(IMAGE_ID, "the bus is yellow")
+    torch.cuda.synchronize()
+    counts = read_counts()                                 # path ends
+    img = np.array(Image.open(result))
+    if img.shape != (session_cfg.pipeline.image_size,) * 2 + (3,):
+        raise AssertionError(f"serve_dp: {result} has shape {img.shape}")
+    log(f"path serve_dp ({card}): FG engine at {s}^2, base "
+        f"{cfg.base_channels}, bucket {k} split over [cuda:0, cuda:0] "
+        f"against one device: noise stream bit-equal, u8 {int(diff.max())} "
+        f"LSB apart on {float((diff > 0).float().mean()):.3%} of values; "
+        f"warm walls split "
+        + ", ".join(f"{w:.2f}" for w in walls["split"][1:]) + " ms, single "
+        + ", ".join(f"{w:.2f}" for w in walls["single"][1:]) + " ms; a "
+        f"session with serve_gan_data_parallel=2 on one card served a "
+        f"routed FG command on one device; launches B1 {counts['mlstm_fwd']}")
+    del session, single, split
+    release()
+    return counts
+
+
 def release():
     """Free what the last phase dropped (the engines' noise sources are
     reference cycles, so a dropped session waits for the collector), so
@@ -4358,6 +5002,11 @@ def main() -> int:
     paths["train_matching_pretrained"] = train_matching_pretrained(
         mlstm, matching_npz)
     log(f"train_matching_pretrained: {time.perf_counter() - t0:.1f} s")
+    release()
+    t0 = time.perf_counter()
+    paths.update(parallel_paths(card))
+    paths["serve_dp"] = serve_dp(build_session, card)
+    log(f"parallel_paths + serve_dp: {time.perf_counter() - t0:.1f} s")
 
     by_kernel = {k: {path: c[k] for path, c in paths.items() if c[k]}
                  for k in kernel_counters()}

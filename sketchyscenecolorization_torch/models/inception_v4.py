@@ -35,6 +35,7 @@ from torch import nn
 
 from ..ops.conv import same_pads
 from ..ops.image import resize_bilinear_half_pixel
+from ..parallel.mesh import shard_mean
 from .gan_layers import truncated_normal
 
 BN_EPS = 1e-3
@@ -452,9 +453,11 @@ def perceptual_loss(model: InceptionV4, image1: torch.Tensor,
                     image2: torch.Tensor) -> torch.Tensor:
     """Mean-L1 over the three endpoints (JAX ``perceptual_loss`` :415;
     ``graph_single.get_perceptual_loss``).  Inputs in [-1, 1] NHWC at any
-    size, mapped to [0, 1] and resized to 299 like the reference."""
+    size, mapped to [0, 1] and resized to 299 like the reference.  Under a
+    data-parallel mesh, a shard's share of the global batch's loss
+    (``parallel.mesh.shard_mean``)."""
     def prep(img):
         return resize_bilinear_half_pixel((img + 1.0) / 2.0, 299, 299)
     e1 = extract_endpoints(model, prep(image1))
     e2 = extract_endpoints(model, prep(image2))
-    return sum(torch.mean(torch.abs(a - b)) for a, b in zip(e1, e2))
+    return sum(shard_mean(torch.abs(a - b)) for a, b in zip(e1, e2))

@@ -21,7 +21,10 @@ named after its JAX scope (``ResNet``, ``FCN_8s``, ``SegNet``,
 ``resnet_v1_101``) and each exiting at output stride 8.  With
 ``compute_dtype='bfloat16'`` the instruction-independent half runs under
 the bf16 compute-dtype scope (``ops/conv.py``) and hands f32 features to
-the fusion, as JAX ``rmi.py:259-274`` does.
+the fusion, as JAX ``rmi.py:259-274`` does.  With ``shard_mlstm_pixels``
+each fusion's recurrence runs with its pixels sharded over the 'model'
+axis of the ambient mesh (``parallel/pixel_shard.py``; JAX
+``rmi.py:165-196,227-237``).
 """
 from __future__ import annotations
 
@@ -38,6 +41,10 @@ from ..ops.mlstm import attn_weighted_pixel_lstm, masked_pixel_lstm
 from ..ops.norm import l2_normalize
 from ..ops.recur_attn import recur_attn_pixel_lstm
 from ..ops.spatial import generate_spatial_batch
+from ..parallel.mesh import current_mesh
+from ..parallel.pixel_shard import (sharded_attn_weighted_pixel_lstm,
+                                    sharded_masked_pixel_lstm,
+                                    sharded_recur_attn_pixel_lstm)
 from .deeplab import DeepLabV2
 
 
@@ -119,9 +126,6 @@ class RMI(nn.Module):
         super().__init__()
         if cfg.fusion_type not in ("RMI", "RecurAttn"):
             raise ValueError(f"unknown fusion_type {cfg.fusion_type!r}")
-        if cfg.shard_mlstm_pixels:
-            raise NotImplementedError(
-                "mLSTM pixel sharding is ROADMAP item A13")
         self.cfg = cfg
         self.scope, cls, dim = backbone_spec(cfg)
         self.add_module(self.scope, cls(generator=generator))
@@ -174,11 +178,28 @@ class RMI(nn.Module):
             # their logit is the bias and they take weight
             fc = self.text_sketchyscene.attn_fc
             attn = torch.softmax((lang @ fc.DW)[..., 0] + fc.biases, dim=-1)
-            m_last = attn_weighted_pixel_lstm(pixel_term, step_term, w_h,
-                                              valid, attn)
+            if cfg.shard_mlstm_pixels:
+                m_last = sharded_attn_weighted_pixel_lstm(
+                    pixel_term, step_term, w_h, valid, attn, self._mesh())
+            else:
+                m_last = attn_weighted_pixel_lstm(pixel_term, step_term, w_h,
+                                                  valid, attn)
+        elif cfg.shard_mlstm_pixels:
+            m_last = sharded_masked_pixel_lstm(pixel_term, step_term, w_h,
+                                               valid, self._mesh())
         else:
             m_last = masked_pixel_lstm(pixel_term, step_term, w_h, valid)
         return m_last.reshape(n, h, w, cfg.m_rnn_size)
+
+    def _mesh(self):
+        """The ambient mesh whose 'model' axis shards the recurrence's
+        pixels (``shard_mlstm_pixels``; JAX's ``shard_map`` needs
+        ``jax.set_mesh``)."""
+        mesh = current_mesh()
+        if mesh is None:
+            raise ValueError("shard_mlstm_pixels needs a mesh: run the model "
+                             "under parallel.set_mesh(mesh)")
+        return mesh
 
     def _recur_attn_fusion(self, visual_norm, lang_out, words):
         """Recurrent-attention fusion (JAX ``rmi.py:205-240``): h starts at
@@ -186,9 +207,12 @@ class RMI(nn.Module):
         step, and skips every step whose token is <pad> (``words != 0``)."""
         n, h, w, v = visual_norm.shape
         text = self.text_sketchyscene
-        m_last = recur_attn_pixel_lstm(
-            visual_norm.reshape(n, h * w, v), lang_out, text.h_proj.DW,
-            text.h_proj.biases, text.mLSTM.w, text.mLSTM.b, words != 0)
+        args = (visual_norm.reshape(n, h * w, v), lang_out, text.h_proj.DW,
+                text.h_proj.biases, text.mLSTM.w, text.mLSTM.b, words != 0)
+        if self.cfg.shard_mlstm_pixels:
+            m_last = sharded_recur_attn_pixel_lstm(*args, self._mesh())
+        else:
+            m_last = recur_attn_pixel_lstm(*args)
         return m_last.reshape(n, h, w, self.cfg.m_rnn_size)
 
     def apply_fused(self, visual_norm: torch.Tensor, words: torch.Tensor,

@@ -513,6 +513,40 @@ def mlstm_attn_bwd_cuda(pixel_term: torch.Tensor, step_term: torch.Tensor,
 mlstm_attn_bwd_cuda.launches = 0
 
 
+def mlstm_forward(pixel_term, step_term, w_h, valid):
+    """B1 (``mlstm_cuda``) on CUDA tensors, ``mlstm_plain`` on CPU ones;
+    f32 operands and int32 ``valid``, contiguous."""
+    if pixel_term.device.type == "cpu":
+        return mlstm_plain(pixel_term, step_term, w_h, valid)
+    return mlstm_cuda(pixel_term, step_term, w_h, valid)
+
+
+def mlstm_backward(pixel_term, step_term, w_h, valid, g):
+    """(d_pixel, d_step, d_w_h) by B2 (``mlstm_bwd_cuda``) on CUDA tensors,
+    ``mlstm_bwd_plain`` on CPU ones."""
+    if pixel_term.device.type == "cpu":
+        return mlstm_bwd_plain(pixel_term, step_term, w_h, valid, g)
+    return mlstm_bwd_cuda(pixel_term, step_term, w_h, valid, g.contiguous())
+
+
+def mlstm_attn_forward(pixel_term, step_term, w_h, valid, attn):
+    """B3 (``mlstm_attn_cuda``) on CUDA tensors, ``mlstm_attn_plain`` on
+    CPU ones."""
+    if pixel_term.device.type == "cpu":
+        return mlstm_attn_plain(pixel_term, step_term, w_h, valid, attn)
+    return mlstm_attn_cuda(pixel_term, step_term, w_h, valid, attn)
+
+
+def mlstm_attn_backward(pixel_term, step_term, w_h, valid, attn, g):
+    """(d_pixel, d_step, d_w_h, d_attn) by B4 (``mlstm_attn_bwd_cuda``) on
+    CUDA tensors, ``mlstm_attn_bwd_plain`` on CPU ones."""
+    if pixel_term.device.type == "cpu":
+        return mlstm_attn_bwd_plain(pixel_term, step_term, w_h, valid, attn,
+                                    g)
+    return mlstm_attn_bwd_cuda(pixel_term, step_term, w_h, valid, attn,
+                               g.contiguous())
+
+
 class MaskedPixelLSTM(torch.autograd.Function):
     """The masked recurrence with its BPTT (JAX custom VJP
     ``pallas_mlstm.py:936-970``): forward by ``mlstm_plain`` (CPU) or kernel
@@ -526,18 +560,11 @@ class MaskedPixelLSTM(torch.autograd.Function):
                 w_h.contiguous(), valid.to(torch.int32).contiguous())
         if save:
             ctx.save_for_backward(*args)
-        if pixel_term.device.type == "cpu":
-            return mlstm_plain(*args)
-        return mlstm_cuda(*args)
+        return mlstm_forward(*args)
 
     @staticmethod
     def backward(ctx, g):
-        args = ctx.saved_tensors
-        if args[0].device.type == "cpu":
-            grads = mlstm_bwd_plain(*args, g)
-        else:
-            grads = mlstm_bwd_cuda(*args, g.contiguous())
-        return (*grads, None, None)
+        return (*mlstm_backward(*ctx.saved_tensors, g), None, None)
 
 
 def masked_pixel_lstm(pixel_term: torch.Tensor, step_term: torch.Tensor,
@@ -565,18 +592,12 @@ class AttnWeightedPixelLSTM(torch.autograd.Function):
                 attn.contiguous())
         if save:
             ctx.save_for_backward(*args)
-        if pixel_term.device.type == "cpu":
-            return mlstm_attn_plain(*args)
-        return mlstm_attn_cuda(*args)
+        return mlstm_attn_forward(*args)
 
     @staticmethod
     def backward(ctx, g):
-        args = ctx.saved_tensors
-        if args[0].device.type == "cpu":
-            d_pixel, d_step, d_w_h, d_attn = mlstm_attn_bwd_plain(*args, g)
-        else:
-            d_pixel, d_step, d_w_h, d_attn = mlstm_attn_bwd_cuda(
-                *args, g.contiguous())
+        d_pixel, d_step, d_w_h, d_attn = mlstm_attn_backward(
+            *ctx.saved_tensors, g)
         return d_pixel, d_step, d_w_h, None, d_attn, None
 
 

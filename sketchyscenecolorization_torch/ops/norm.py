@@ -12,10 +12,19 @@ The batch-stats norms and ``l2_normalize`` compute their statistics in
 f32 and return at the input dtype (JAX ``ops/norm.py:62-99``), so a bf16
 activation stream under the compute-dtype scope stays bf16; for f32 input
 the casts are no-ops.
+
+Under a mesh with several 'data' ranks (``parallel.set_mesh``, as a
+data-parallel train step holds it), the batch statistics are the global
+batch's, as a jitted JAX step over a sharded batch computes them: the
+shards' sums, then their sums of squared deviations, are summed over
+'data' by a differentiable all-reduce, so the backward also sees the
+global moments.  The per-sample statistics of serving are unchanged.
 """
 from __future__ import annotations
 
 import torch
+
+from ..parallel.mesh import data_axis, global_sum
 
 
 def frozen_batch_norm(x, mean, var, beta, gamma, factor, eps: float = 0.001):
@@ -33,6 +42,13 @@ def _wide(x: torch.Tensor) -> torch.Tensor:
 
 
 def _stats(x: torch.Tensor, per_sample: bool):
+    axis = None if per_sample else data_axis()
+    if axis is not None:
+        count = x.shape[0] * x.shape[1] * x.shape[2] * axis[1]
+        mean = global_sum(torch.sum(x, dim=(0, 1, 2), keepdim=True)) / count
+        var = global_sum(torch.sum(torch.square(x - mean), dim=(0, 1, 2),
+                                   keepdim=True)) / count
+        return mean, var
     dims = (1, 2) if per_sample else (0, 1, 2)
     var, mean = torch.var_mean(x, dim=dims, correction=0, keepdim=True)
     return mean, var

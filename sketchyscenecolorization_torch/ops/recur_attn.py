@@ -274,6 +274,24 @@ def recur_attn_bwd_cuda(h0, lang, wp, bp, wm, bm, valid, g: torch.Tensor):
 recur_attn_bwd_cuda.launches = 0
 
 
+def recur_attn_forward(h0, lang, wp, bp, wm, bm, valid):
+    """B5 (``recur_attn_cuda``) on CUDA tensors, ``recur_attn_plain`` on
+    CPU ones; f32 operands and int32 ``valid``, contiguous."""
+    if h0.device.type == "cpu":
+        return recur_attn_plain(h0, lang, wp, bp, wm, bm, valid)
+    return recur_attn_cuda(h0, lang, wp, bp, wm, bm, valid)
+
+
+def recur_attn_backward(h0, lang, wp, bp, wm, bm, valid, g):
+    """(d_h0, d_lang, d_wp, d_bp, d_wm, d_bm) by B6
+    (``recur_attn_bwd_cuda``) on CUDA tensors, ``recur_attn_bwd_plain``
+    on CPU ones."""
+    if h0.device.type == "cpu":
+        return recur_attn_bwd_plain(h0, lang, wp, bp, wm, bm, valid, g)
+    return recur_attn_bwd_cuda(h0, lang, wp, bp, wm, bm, valid,
+                               g.contiguous())
+
+
 class RecurAttnPixelLSTM(torch.autograd.Function):
     """The RecurAttn recurrence with its BPTT (JAX custom VJP
     ``pallas_mlstm.py:745-775``): forward by ``recur_attn_plain`` (CPU) or
@@ -287,18 +305,11 @@ class RecurAttnPixelLSTM(torch.autograd.Function):
             + (valid.to(torch.int32).contiguous(),)
         if save:
             ctx.save_for_backward(*args)
-        if h0.device.type == "cpu":
-            return recur_attn_plain(*args)
-        return recur_attn_cuda(*args)
+        return recur_attn_forward(*args)
 
     @staticmethod
     def backward(ctx, g):
-        args = ctx.saved_tensors
-        if args[0].device.type == "cpu":
-            grads = recur_attn_bwd_plain(*args, g)
-        else:
-            grads = recur_attn_bwd_cuda(*args, g.contiguous())
-        return (*grads, None, None)
+        return (*recur_attn_backward(*ctx.saved_tensors, g), None, None)
 
 
 def recur_attn_pixel_lstm(h0: torch.Tensor, lang: torch.Tensor,

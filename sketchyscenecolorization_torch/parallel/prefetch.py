@@ -7,7 +7,13 @@ keeps ``depth`` batches already on their way to the device: on a CUDA
 device each array is copied from pinned host memory without blocking, on
 a side stream, so the copy runs beside the step on the current stream;
 the current stream waits for a batch's copy before the batch is handed
-out.  On the CPU the arrays are wrapped.
+out.  On the CPU the arrays are wrapped.  Under a mesh it copies only
+this rank's rows (JAX ``prefetch.py:24-35``).
+
+Under a mesh every rank must see the same global batch at the same step,
+while the batch workers draw from stateful generators in no fixed order.
+So ``mesh_batches`` builds the batches on the mesh's first rank only and
+broadcasts each one to the other ranks.
 """
 from __future__ import annotations
 
@@ -18,6 +24,9 @@ from typing import Any, Callable, Dict, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from .mesh import is_first_rank, shard_batch
 
 
 def to_device(batch: Dict[str, np.ndarray], device,
@@ -38,13 +47,17 @@ def to_device(batch: Dict[str, np.ndarray], device,
 
 
 def prefetch_to_device(iterator: Iterable[Dict[str, np.ndarray]], device,
-                       depth: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                       depth: int = 2, mesh=None
+                       ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield batches on ``device`` with ``depth`` copies in flight (on a
-    side stream on CUDA)."""
+    side stream on CUDA); with a ``mesh``, this rank's rows of each global
+    batch (``shard_batch``)."""
     device = torch.device(device)
     side = torch.cuda.Stream(device) if device.type == "cuda" else None
 
     def start_copy(batch):
+        if mesh is not None:
+            batch = shard_batch(batch, mesh)
         out = to_device(batch, device, side)
         if side is None:
             return out, None
@@ -128,3 +141,45 @@ class BackgroundGenerator:
             if isinstance(item, Exception):
                 raise item
             yield item
+
+
+class _BroadcastBatches:
+    """The global batches of ``make_batch``, made by a
+    ``BackgroundGenerator`` on the mesh's first rank and broadcast to every
+    rank of the default group, in order.  A worker's exception is
+    broadcast too and raised on every rank."""
+
+    def __init__(self, make_batch: Callable[[int], Any], num_steps: int,
+                 mesh, **workers):
+        self._num_steps = max(0, num_steps)
+        self._src = int(mesh.mesh.flatten()[0])
+        self._gen = BackgroundGenerator(make_batch, num_steps, **workers) \
+            if is_first_rank(mesh) else None
+
+    def close(self):
+        if self._gen is not None:
+            self._gen.close()
+
+    def __iter__(self):
+        made = iter(self._gen) if self._gen is not None else None
+        for _ in range(self._num_steps):
+            item = [None]
+            if made is not None:
+                try:
+                    item[0] = next(made)
+                except Exception as e:      # raised below on every rank
+                    item[0] = e
+            dist.broadcast_object_list(item, src=self._src)
+            if isinstance(item[0], Exception):
+                raise item[0]
+            yield item[0]
+
+
+def mesh_batches(make_batch: Callable[[int], Any], num_steps: int,
+                 mesh=None, **workers):
+    """A ``BackgroundGenerator`` of ``make_batch``, or under a ``mesh`` the
+    same batches made on the mesh's first rank and broadcast to every
+    rank (``close()`` either way)."""
+    if mesh is None:
+        return BackgroundGenerator(make_batch, num_steps, **workers)
+    return _BroadcastBatches(make_batch, num_steps, mesh, **workers)

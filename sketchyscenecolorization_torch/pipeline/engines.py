@@ -121,6 +121,15 @@ class MatchingEngine:
             / np.maximum(np.asarray(areas, np.float64), 1.0)[None, :]
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with the index it stands for (``cuda`` is the current
+    CUDA device)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class FGColorizeEngine:
     """FG generator (MRU, Pix2Pix or Residual) over a batch of instances
     (``fg_color_utils.py:253-265``; JAX ``engines.py:170-394``).
@@ -132,15 +141,35 @@ class FGColorizeEngine:
     split: a stream run gives every row the noise it gets from sequential
     commands, however the run is segmented.  A test replaces
     ``noise_source`` to feed the JAX engine's noise stream.
+
+    ``serve_devices`` (serving data parallelism, JAX's serving mesh,
+    ``engines.py:176-186,284-337``): a list of devices, the first of them
+    ``device``; the generator is copied once to each.  The noise and the
+    row stack stay on ``device``; a bucket that divides over the list is
+    split into equal contiguous row shards, each run on its device (rows
+    are independent under per-sample BN) and its uint8 output gathered on
+    ``device``.  Smaller buckets run on ``device`` alone, as JAX's do.  A
+    device may appear more than once (one card driving the split path).
     """
 
     MAX_GAN_ROWS = 128      # largest generator batch; larger runs chunk
 
     def __init__(self, cfg: FGGanConfig, model: torch.nn.Module,
-                 vocab: Dict[str, int], seed: int = 0, device="cuda"):
+                 vocab: Dict[str, int], seed: int = 0, device="cuda",
+                 serve_devices: Optional[Sequence] = None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.model = model.to(self.device).eval()
+        self.serve_devices = None
+        if serve_devices is not None:
+            self.serve_devices = [_indexed(d) for d in serve_devices]
+            if self.serve_devices[0] != _indexed(self.device):
+                raise ValueError(f"serve_devices start at {device}, got "
+                                 f"{self.serve_devices[0]}")
+            self._replicas = {self.serve_devices[0]: self.model}
+            for d in self.serve_devices:
+                if d not in self._replicas:
+                    self._replicas[d] = copy.deepcopy(self.model).to(d)
         self.vocab = vocab
         self._rng = torch.Generator().manual_seed(seed)
         self.noise_source: Callable[[int], np.ndarray] = self._torch_noise
@@ -218,8 +247,19 @@ class FGColorizeEngine:
             noise = torch.cat([noise, noise.new_zeros((pad, noise.shape[1]))])
             tok = torch.cat([tok, tok.new_zeros((pad, tok.shape[1]))])
             ids = torch.cat([ids, ids.new_zeros((pad,))])
+        devices = self.serve_devices
+        if devices is None or bucket % len(devices):
+            return self._forward_u8(self.model, x, tok, ids, noise)
+        rows = bucket // len(devices)
+        shards = [self._forward_u8(
+            self._replicas[d], *(t[i * rows:(i + 1) * rows].to(d)
+                                 for t in (x, tok, ids, noise)))
+            for i, d in enumerate(devices)]
+        return torch.cat([s.to(dev) for s in shards])
+
+    def _forward_u8(self, model, x, tok, ids, noise) -> torch.Tensor:
         with compute_dtype_scope(self.cfg.compute_dtype):
-            out = self.model(x, tok, ids, noise, per_sample=True).float()
+            out = model(x, tok, ids, noise, per_sample=True).float()
         return (((out + 1.0) / 2.0) * 255.0).to(torch.uint8)  # truncates,
                                                               # as astype
 

@@ -13,6 +13,11 @@ parameters, as in JAX.  A step directory without ``state.pt`` (an orbax
 snapshot of the JAX package) raises: ``scripts/orbax_to_torch.py``
 converts those (on the CPU, with JAX installed).  A JAX parameter tree can
 be loaded into the built models with ``utils.bridge.load_jax_tree``.
+
+Serving data parallelism (``serve_gan_data_parallel = n > 1``) gives the FG
+engine the first n CUDA devices (``serve_devices_for``, JAX
+``serve_mesh_for``); a host with fewer serves on one device, as JAX falls
+back, with the same outputs.
 """
 from __future__ import annotations
 
@@ -87,6 +92,18 @@ def restore_generator(model: torch.nn.Module, ckpt_dir: str
     return _restore(model, ckpt_dir, "generator", "GAN training")
 
 
+def serve_devices_for(cfg: FrameworkConfig, device="cuda"):
+    """The devices the FG engine splits its generator batches over (JAX
+    ``factory.py:38-48``): the first ``serve_gan_data_parallel`` CUDA
+    devices when it is above 1, ``device`` is a CUDA one and the host has
+    that many; otherwise None, one device (JAX's fallback)."""
+    n_dp = cfg.pipeline.serve_gan_data_parallel
+    if n_dp > 1 and torch.device(device).type == "cuda" \
+            and torch.cuda.device_count() >= n_dp:
+        return [torch.device("cuda", i) for i in range(n_dp)]
+    return None
+
+
 def build_session(cfg: FrameworkConfig, seed: int = 0,
                   device="cuda") -> ColorizationSession:
     """Matching, FG and BG engines on ``device``, each model from its
@@ -110,6 +127,7 @@ def build_session(cfg: FrameworkConfig, seed: int = 0,
         cfg,
         MatchingEngine(cfg.matching, rmi, m_vocab, cfg.pipeline.score_thresh,
                        device=device),
-        FGColorizeEngine(cfg.fg_gan, fgen, f_vocab, seed=seed, device=device),
+        FGColorizeEngine(cfg.fg_gan, fgen, f_vocab, seed=seed, device=device,
+                         serve_devices=serve_devices_for(cfg, device)),
         BGColorizeEngine(cfg.bg_gan, bgen, b_vocab, device=device),
     )

@@ -87,14 +87,6 @@ def _fixture_signature(paths: Dict[str, str]) -> Tuple[int, ...]:
                  for k in ("sketch", "seg_data", "inner_mask"))
 
 
-def _check_supported(cfg: FrameworkConfig) -> None:
-    if cfg.pipeline.serve_gan_data_parallel > 1:
-        raise NotImplementedError(
-            "serve_gan_data_parallel > 1 shards the FG generator batch over "
-            "several devices: serving data parallelism is ROADMAP item A13; "
-            "one card has no serving mesh")
-
-
 class _LazyFetch:
     """A device tensor and its host copy (JAX ``session.py:91-123``).  On a
     CUDA tensor the copy starts at construction, into pinned memory, with
@@ -254,7 +246,6 @@ class ColorizationSession:
 
     def __init__(self, cfg: FrameworkConfig, matching: MatchingEngine,
                  fg: FGColorizeEngine, bg: BGColorizeEngine):
-        _check_supported(cfg)
         self.cfg = cfg
         self.matching = matching
         self.fg = fg

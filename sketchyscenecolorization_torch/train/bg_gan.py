@@ -16,6 +16,13 @@ As in the JAX step:
   (``torch.utils.checkpoint``, JAX's ``jax.checkpoint``): a step then runs
   the generator forward three times.
 The step updates the models and moments in place and returns the state.
+
+With a ``mesh`` the batch is this rank's rows of the global batch: the
+losses are the rank's shares (``train/losses.py``; the L1's pixel count
+is the global batch's), the batch norms take the global batch's moments
+(``ops/norm.py``), each update's gradients are summed over 'data'
+(``parallel.reduce_gradients``), and the raw losses, and so the EMAs, are
+the global batch's: the single-process step on the global batch.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import BGGanConfig
 from ..models.bg_gan import build_discriminator, build_generator
+from ..parallel.mesh import reduce_gradients, reduce_metrics, set_mesh
 from .losses import bg_discrim_loss, bg_gan_losses
 from .optim import AdamState, adam_update, grads_of
 from .schedules import tf1_polynomial_decay
@@ -81,8 +89,9 @@ def create_bg_gan_state(cfg: BGGanConfig, seed: int = 0,
         ema_losses={k: torch.zeros((), device=device) for k in LOSS_KEYS})
 
 
-def make_bg_gan_train_step(cfg: BGGanConfig):
-    """Returns ``step(state, batch) -> (state, metrics)``.
+def make_bg_gan_train_step(cfg: BGGanConfig, mesh=None):
+    """Returns ``step(state, batch) -> (state, metrics)``, data-parallel
+    over ``mesh`` when one is given (the module docstring).
 
     ``batch``: tensors on the models' device: inputs [B,S,S,3] (the FG
     composite, [-1,1]), targets [B,S,S,3] ([-1,1]), tokens [B,T]
@@ -99,35 +108,47 @@ def make_bg_gan_train_step(cfg: BGGanConfig):
     def forward_g(gen, batch):
         args = (batch["inputs"], batch["tokens"].long())
         if cfg.remat and torch.is_grad_enabled():
-            return checkpoint(gen, *args, use_reentrant=False)
+            def run(*a):
+                # the recomputation runs in the backward, possibly on
+                # autograd's device thread: it sets the mesh itself
+                with set_mesh(mesh):
+                    return gen(*a)
+            return checkpoint(run, *args, use_reentrant=False)
         return gen(*args)
 
     def optimize(module, loss, opt: AdamState):
         params = dict(module.named_parameters())
-        adam_update(params, grads_of(loss, params), opt,
-                    schedule(opt.count), cfg.beta1, ADAM_B2, ADAM_EPS)
+        grads = grads_of(loss, params)
+        if mesh is not None:
+            reduce_gradients(grads, mesh)
+        adam_update(params, grads, opt, schedule(opt.count), cfg.beta1,
+                    ADAM_B2, ADAM_EPS)
 
     def step(state: BGGanTrainState, batch):
         gen, disc = state.generator, state.discriminator
         inputs, targets = batch["inputs"], batch["targets"]
-        # ---- D update, on the current G outputs ----
-        with torch.no_grad():
-            outputs, _ = forward_g(gen, batch)
-        d_loss = bg_discrim_loss(disc(inputs, targets), disc(inputs, outputs))
-        optimize(disc, d_loss, state.d_opt)
+        with set_mesh(mesh):
+            # ---- D update, on the current G outputs ----
+            with torch.no_grad():
+                outputs, _ = forward_g(gen, batch)
+            d_loss = bg_discrim_loss(disc(inputs, targets),
+                                     disc(inputs, outputs))
+            optimize(disc, d_loss, state.d_opt)
 
-        # ---- G update against the updated D ----
-        outputs, region_logits = forward_g(gen, batch)
-        losses = bg_gan_losses(disc(inputs, targets), disc(inputs, outputs),
-                               targets, outputs, region_logits,
-                               batch["labels"], cfg.gan_weight,
-                               cfg.l1_weight, cfg.seg_weight)
-        optimize(gen, losses["gen_loss"], state.g_opt)
+            # ---- G update against the updated D ----
+            outputs, region_logits = forward_g(gen, batch)
+            losses = bg_gan_losses(disc(inputs, targets),
+                                   disc(inputs, outputs), targets, outputs,
+                                   region_logits, batch["labels"],
+                                   cfg.gan_weight, cfg.l1_weight,
+                                   cfg.seg_weight)
+            optimize(gen, losses["gen_loss"], state.g_opt)
 
         # ---- EMA of the loss scalars ----
         decay = cfg.ema_decay
         raw = {k: v.detach() for k, v in losses.items()}
         raw["discrim_loss"] = d_loss.detach()
+        raw = reduce_metrics(raw, LOSS_KEYS, mesh)
         for k in LOSS_KEYS:
             new = raw[k] if state.step == 0 else \
                 decay * state.ema_losses[k] + (1 - decay) * raw[k]

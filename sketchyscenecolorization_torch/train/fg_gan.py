@@ -29,6 +29,16 @@ host, so a resumed run and a run on another device draw the same; a caller
 can pass them instead (``draws``), as the tests do with JAX's.  Where the
 JAX step is a pure function, this one updates the models and moments in
 place and returns the same state.
+
+With a ``mesh`` the batches are this rank's rows of the global batches;
+the draws stay the global batch's (from (seed, step), or as passed) and
+the rank takes its rows of them.  The losses are the rank's shares
+(``train/losses.py``), the batch norms take the global batch's moments
+(``ops/norm.py``), each update's gradients are summed over 'data' before
+the clipping and Adam (``parallel.reduce_gradients``), and the metrics are
+the global batch's; the spectral-norm vectors are computed from the
+replicated weights, so every rank commits the same ones.  A step is then
+the single-process step on the global batch.
 """
 from __future__ import annotations
 
@@ -43,6 +53,8 @@ from ..config import FGGanConfig
 from ..models.fg_gan import build_discriminator, build_generator
 from ..models.gan_layers import commit_sn
 from ..models.inception_v4 import InceptionV4, perceptual_loss
+from ..parallel.mesh import (reduce_gradients, reduce_metrics, set_mesh,
+                             shard_batch)
 from .losses import (acgan_focal_loss, dragan_losses, fc_weight_decay_loss,
                      smooth_l1, wgan_gp_losses, wgan_sn_losses)
 from .optim import (AdamState, adam_update, clip_by_global_norm,
@@ -123,7 +135,9 @@ def fg_gan_draws(cfg: FGGanConfig, seed: int, step: int,
 
 
 def _optimize(params, grads, opt: AdamState, base_lr: float, per_step: int,
-              max_iters: int, clip) -> None:
+              max_iters: int, clip, mesh) -> None:
+    if mesh is not None:
+        reduce_gradients(grads, mesh)
     if clip is not None:
         grads = clip_by_tensor_norm(clip_by_global_norm(grads, clip[0]),
                                     clip[1])
@@ -133,9 +147,11 @@ def _optimize(params, grads, opt: AdamState, base_lr: float, per_step: int,
 
 
 def make_fg_gan_train_step(cfg: FGGanConfig, seed: int = 0,
-                           perceptual: Optional[InceptionV4] = None):
+                           perceptual: Optional[InceptionV4] = None,
+                           mesh=None):
     """Returns ``step(state, batch_d, batch_g, draws=None) -> (state,
-    metrics)``.
+    metrics)``, data-parallel over ``mesh`` when one is given (the module
+    docstring).
 
     ``perceptual`` (an ``InceptionV4`` through at least ``Mixed_5b``, on
     the models' device) adds the perceptual term when
@@ -214,22 +230,29 @@ def make_fg_gan_train_step(cfg: FGGanConfig, seed: int = 0,
         if draws is None:
             draws = fg_gan_draws(cfg, seed, state.step,
                                  next(gen.parameters()).device)
+        if mesh is not None:
+            draws = {"d": [shard_batch(d, mesh) for d in draws["d"]],
+                     "g": shard_batch(draws["g"], mesh)}
         d_params = dict(disc.named_parameters())
-        for k in range(n_d):
-            loss_d = d_loss_fn(gen, disc, batch_d, draws["d"][k])
-            _optimize(d_params, grads_of(loss_d, d_params), state.d_opt,
-                      cfg.lr_d, n_d, max_iters,
-                      None if cfg.spectral_norm else D_CLIP)
+        with set_mesh(mesh):
+            for k in range(n_d):
+                loss_d = d_loss_fn(gen, disc, batch_d, draws["d"][k])
+                _optimize(d_params, grads_of(loss_d, d_params), state.d_opt,
+                          cfg.lr_d, n_d, max_iters,
+                          None if cfg.spectral_norm else D_CLIP, mesh)
 
-        g_params = dict(gen.named_parameters())
-        loss_g, recon = g_loss_fn(gen, disc, batch_g, draws["g"])
-        _optimize(g_params, grads_of(loss_g, g_params), state.g_opt,
-                  cfg.lr_g, 1, max_iters,
-                  None if cfg.spectral_norm else G_CLIP)
+            g_params = dict(gen.named_parameters())
+            loss_g, recon = g_loss_fn(gen, disc, batch_g, draws["g"])
+            _optimize(g_params, grads_of(loss_g, g_params), state.g_opt,
+                      cfg.lr_g, 1, max_iters,
+                      None if cfg.spectral_norm else G_CLIP, mesh)
         state.step += 1
-        loss_d, loss_g = loss_d.detach(), loss_g.detach()
-        return state, {"loss_d": loss_d, "loss_g": loss_g,
-                       "recon_l1": recon.detach(),
-                       "nan": torch.isnan(loss_d) | torch.isnan(loss_g)}
+        metrics = reduce_metrics(
+            {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
+             "recon_l1": recon.detach()}, ("loss_d", "loss_g", "recon_l1"),
+            mesh)
+        metrics["nan"] = torch.isnan(metrics["loss_d"]) | torch.isnan(
+            metrics["loss_g"])
+        return state, metrics
 
     return step

@@ -11,6 +11,15 @@ latest-step resume (``<run_dir>/snapshots`` for matching,
 -1 on a NaN loss so that ``run_with_nan_restart`` relaunches it from its
 newest snapshot.  The JAX harness's optional profiler window is left out;
 ``chip_smoke.py`` profiles a step with ``torch.profiler`` instead.
+
+The three trainers take a ``mesh`` (``parallel.create_mesh``), as JAX's
+do: every rank resumes from the newest snapshot and then takes the mesh's
+first rank's state (JAX's ``replicate``); the mesh's first rank makes the
+global batches and broadcasts them (``parallel.mesh_batches``), each rank
+copies its rows to its device (``cuda:<local rank>``, or ``cuda:0`` for
+every rank of a one-card host) and runs the data-parallel step; only the
+first rank prints, logs and writes snapshots, and every rank waits at a
+barrier after each write.
 """
 from __future__ import annotations
 
@@ -29,7 +38,8 @@ from ..data.matching_dataset import MatchingTrainDataset, load_data_gt
 from ..evaluation import MatchingEvaluator, SegEvalResult
 from ..models.rmi import RMI
 from ..ops.conv import apply_compute_dtype
-from ..parallel import BackgroundGenerator, prefetch_to_device
+from ..parallel import (BackgroundGenerator, is_first_rank, mesh_batches,
+                        prefetch_to_device, rank_device, replicate)
 from ..utils.checkpoint import (latest_checkpoint, restore_checkpoint,
                                 save_checkpoint)
 from ..text import augment_caption_with_attr
@@ -43,39 +53,74 @@ from .matching import (MatchingTrainState, create_matching_state,
 from .watchdog import NaNWatchdog
 
 
+def _rank_setup(device, mesh):
+    """(this rank's device, whether it is the mesh's first rank)."""
+    device = rank_device(device, mesh)
+    if mesh is not None and device.type == "cuda":
+        torch.cuda.set_device(device)     # the device NCCL's objects use
+    return device, is_first_rank(mesh)
+
+
+def _replicate_state(state, mesh) -> None:
+    """Every tensor of a train state (models, moments, EMAs) from the
+    mesh's first rank (JAX ``_resume``'s ``replicate``)."""
+    def leaves(tree):
+        for value in tree.values():
+            if isinstance(value, torch.Tensor):
+                yield value
+            elif isinstance(value, dict):
+                yield from leaves(value)
+    if mesh is not None:
+        replicate(dict(enumerate(leaves(state.state_dict()))), mesh)
+
+
+def _snapshot(ckpt_dir, step, state, max_to_keep, first, mesh) -> None:
+    """The first rank writes; every rank waits for the write."""
+    if first:
+        save_checkpoint(ckpt_dir, step, state.state_dict(),
+                        max_to_keep=max_to_keep)
+    if mesh is not None:
+        torch.distributed.barrier()
+
+
 def train_matching(cfg: MatchingConfig, dataset: MatchingTrainDataset,
                    model: RMI, run_dir: str, log_every: int = 50,
                    max_iters: Optional[int] = None,
-                   device="cuda") -> MatchingTrainState:
+                   device="cuda", mesh=None) -> MatchingTrainState:
     """Batch-1 steps up to ``max_iters`` (default ``cfg.max_iters``),
     resuming from the newest snapshot under ``<run_dir>/snapshots``; loss
     EMA(0.99) printed every ``log_every`` steps; snapshots every
-    ``cfg.snapshot_interval`` steps and at the end (10 kept)."""
+    ``cfg.snapshot_interval`` steps and at the end (10 kept).  With a
+    ``mesh``, data-parallel (the module docstring)."""
     apply_compute_dtype(cfg)
+    device, first = _rank_setup(device, mesh)
     max_iters = max_iters or cfg.max_iters
     ckpt_dir = os.path.join(run_dir, "snapshots")
     state = create_matching_state(model.to(device), cfg)
     found = latest_checkpoint(ckpt_dir)
     if found is not None:
         state.load_state_dict(restore_checkpoint(found[1], map_location=device))
+    _replicate_state(state, mesh)
     start = state.step
-    count_params(state.mu, "text_sketchyscene")
+    if first:
+        count_params(state.mu, "text_sketchyscene")
 
-    step_fn = make_matching_train_step(cfg)
-    writer = JsonlMetricWriter(os.path.join(run_dir, "metrics.jsonl"))
+    step_fn = make_matching_train_step(cfg, mesh)
+    writer = JsonlMetricWriter(os.path.join(run_dir, "metrics.jsonl")) \
+        if first else None
     ema = LossEMA(0.99)
     meter = ThroughputMeter(max_iters)
-    gen = BackgroundGenerator(dataset.make_batch, num_steps=max_iters - start)
+    gen = mesh_batches(dataset.make_batch, max_iters - start, mesh)
     n_iter = start
     try:
-        for batch in prefetch_to_device(gen, device, depth=2):
+        for batch in prefetch_to_device(gen, device, depth=2, mesh=mesh):
             meter.start()
             state, metrics = step_fn(state, batch)
             cls = float(metrics["cls_loss"])
             stats = meter.stop(n_iter)
             ema.update(cls)
             n_iter += 1
-            if n_iter % log_every == 0 or n_iter == max_iters:
+            if first and (n_iter % log_every == 0 or n_iter == max_iters):
                 print(f"iter {n_iter}: cls_loss(ema)={ema.value:.4f} "
                       f"lr={metrics['lr']:.6f} "
                       f"{stats['sec_per_step']:.3f}s/step "
@@ -85,11 +130,11 @@ def train_matching(cfg: MatchingConfig, dataset: MatchingTrainDataset,
                                       "lr": metrics["lr"], **stats})
                 meter.window_reset()
             if n_iter % cfg.snapshot_interval == 0 or n_iter == max_iters:
-                save_checkpoint(ckpt_dir, n_iter, state.state_dict(),
-                                max_to_keep=10)
+                _snapshot(ckpt_dir, n_iter, state, 10, first, mesh)
     finally:
         gen.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state
 
 
@@ -168,12 +213,13 @@ def eval_matching(predict_fn: Optional[Callable[[np.ndarray, str],
     return result
 
 
-def _resume(state, ckpt_dir: str, device) -> int:
+def _resume(state, ckpt_dir: str, device, first: bool, mesh) -> int:
     found = latest_checkpoint(ckpt_dir)
     if found is not None:
         state.load_state_dict(restore_checkpoint(found[1],
                                                  map_location=device))
-    if state.step == 0:
+    _replicate_state(state, mesh)
+    if state.step == 0 and first:
         count_params(dict(state.generator.named_parameters()), "generator")
         count_params(dict(state.discriminator.named_parameters()),
                      "discriminator")
@@ -183,7 +229,7 @@ def _resume(state, ckpt_dir: str, device) -> int:
 def train_fg_gan(cfg: FGGanConfig, dataset: FGPairedDataset, run_dir: str,
                  seed: int = 0, log_every: int = 100,
                  max_iters: Optional[int] = None, device="cuda",
-                 perceptual=None) -> int:
+                 perceptual=None, mesh=None) -> int:
     """One FG GAN training launch (``main_procedure.train`` :62-242) up to
     ``max_iters`` (default ``cfg.max_iters``), resuming from the newest
     snapshot under ``<run_dir>/snapshot``; the D and G batches come from
@@ -191,24 +237,30 @@ def train_fg_gan(cfg: FGGanConfig, dataset: FGPairedDataset, run_dir: str,
     every ``cfg.snapshot_interval`` steps and at the end (100 kept).
     ``perceptual`` is the frozen Inception-v4 of the perceptual term
     (``make_fg_gan_train_step``), moved to ``device``; snapshots do not
-    hold it.  Returns 0 on completion, -1 on a NaN abort."""
+    hold it.  Returns 0 on completion, -1 on a NaN abort.  With a
+    ``mesh``, data-parallel over the global batch ``cfg.batch_size`` (the
+    module docstring)."""
     apply_compute_dtype(cfg)
+    device, first = _rank_setup(device, mesh)
     max_iters = max_iters or cfg.max_iters
     ckpt_dir = os.path.join(run_dir, "snapshot")
     state = create_fg_gan_state(cfg, seed, device)
-    start = _resume(state, ckpt_dir, device)
+    start = _resume(state, ckpt_dir, device, first, mesh)
     step_fn = make_fg_gan_train_step(
         cfg, seed=seed + 1,
-        perceptual=None if perceptual is None else perceptual.to(device))
-    writer = JsonlMetricWriter(os.path.join(run_dir, "metrics.jsonl"))
+        perceptual=None if perceptual is None else perceptual.to(device),
+        mesh=mesh)
+    writer = JsonlMetricWriter(os.path.join(run_dir, "metrics.jsonl")) \
+        if first else None
     meter = ThroughputMeter(max_iters)
     watchdog = NaNWatchdog()
-    gen_d = BackgroundGenerator(dataset.make_batch, num_steps=max_iters - start)
-    gen_g = BackgroundGenerator(dataset.make_batch, num_steps=max_iters - start)
+    gen_d = mesh_batches(dataset.make_batch, max_iters - start, mesh)
+    gen_g = mesh_batches(dataset.make_batch, max_iters - start, mesh)
     i = start
     try:
-        for batch_d, batch_g in zip(prefetch_to_device(gen_d, device),
-                                    prefetch_to_device(gen_g, device)):
+        for batch_d, batch_g in zip(
+                prefetch_to_device(gen_d, device, mesh=mesh),
+                prefetch_to_device(gen_g, device, mesh=mesh)):
             meter.start()
             state, metrics = step_fn(state, batch_d, batch_g)
             tripped = watchdog.check(metrics, i + 1)   # waits for the step
@@ -217,59 +269,62 @@ def train_fg_gan(cfg: FGGanConfig, dataset: FGPairedDataset, run_dir: str,
             if tripped:
                 print(f"NaN at iter {i}; aborting with status -1")
                 return -1
-            if i % log_every == 0 or i == max_iters:
+            if first and (i % log_every == 0 or i == max_iters):
                 print(f"iter {i}: loss_d={float(metrics['loss_d']):.4f} "
                       f"loss_g={float(metrics['loss_g']):.4f} "
                       f"{stats['sec_per_step']:.3f}s/step")
                 writer.write(i, {k: metrics[k] for k in
                                  ("loss_d", "loss_g", "recon_l1")} | stats)
             if i % cfg.snapshot_interval == 0 or i == max_iters:
-                save_checkpoint(ckpt_dir, i, state.state_dict(),
-                                max_to_keep=100)
+                _snapshot(ckpt_dir, i, state, 100, first, mesh)
     finally:
         gen_d.close()
         gen_g.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
     return 0
 
 
 def train_bg_gan(cfg: BGGanConfig, dataset: BGDataset, run_dir: str,
                  seed: int = 0, progress_every: int = 50,
                  max_steps: Optional[int] = None,
-                 device="cuda") -> BGGanTrainState:
+                 device="cuda", mesh=None) -> BGGanTrainState:
     """The ``bg_colorization`` training loop (:894-975) up to ``max_steps``
     (default ``cfg.max_steps``), resuming from the newest snapshot under
     ``<run_dir>/snapshot``; the loss EMAs printed every ``progress_every``
     steps; snapshots every ``cfg.snapshot_interval`` steps and at the end
-    (10 kept)."""
+    (10 kept).  With a ``mesh``, data-parallel over the global batch
+    ``cfg.batch_size`` (the module docstring)."""
     apply_compute_dtype(cfg)
+    device, first = _rank_setup(device, mesh)
     max_steps = max_steps or cfg.max_steps
     ckpt_dir = os.path.join(run_dir, "snapshot")
     state = create_bg_gan_state(cfg, seed, device)
-    start = _resume(state, ckpt_dir, device)
-    step_fn = make_bg_gan_train_step(cfg)
-    writer = JsonlMetricWriter(os.path.join(run_dir, "metrics.jsonl"))
+    start = _resume(state, ckpt_dir, device, first, mesh)
+    step_fn = make_bg_gan_train_step(cfg, mesh)
+    writer = JsonlMetricWriter(os.path.join(run_dir, "metrics.jsonl")) \
+        if first else None
     meter = ThroughputMeter(max_steps)
-    gen = BackgroundGenerator(dataset.make_batch, num_steps=max_steps - start)
+    gen = mesh_batches(dataset.make_batch, max_steps - start, mesh)
     step = start
     try:
-        for batch in prefetch_to_device(gen, device, depth=2):
+        for batch in prefetch_to_device(gen, device, depth=2, mesh=mesh):
             meter.start()
             state, metrics = step_fn(state, batch)
             ema = dict(zip(LOSS_KEYS, torch.stack(     # waits for the step
                 [metrics["ema/" + k] for k in LOSS_KEYS]).tolist()))
             stats = meter.stop(step)
             step += 1
-            if step % progress_every == 0 or step == max_steps:
+            if first and (step % progress_every == 0 or step == max_steps):
                 print(f"step {step}: " + " ".join(
                     f"{k}={v:.4f}" for k, v in ema.items())
                     + f" image/sec={stats['steps_per_sec']:.1f}")
                 writer.write(step, {f"ema/{k}": v for k, v in ema.items()}
                              | stats)
             if step % cfg.snapshot_interval == 0 or step == max_steps:
-                save_checkpoint(ckpt_dir, step, state.state_dict(),
-                                max_to_keep=10)
+                _snapshot(ckpt_dir, step, state, 10, first, mesh)
     finally:
         gen.close()
-        writer.close()
+        if writer is not None:
+            writer.close()
     return state

@@ -16,6 +16,13 @@ Semantics, as in the JAX step:
 
 Where the JAX step is a pure function of an immutable state, this one
 updates the model and the Adam moments in place and returns the same state.
+
+With a ``mesh`` (``parallel.create_mesh``) the batch is this rank's rows of
+the global batch: the loss is the rank's share (``train/losses.py``), the
+trainable gradients are summed over 'data' before the update and the
+metrics are the global batch's, so every rank applies the global step of
+JAX's jitted step on the sharded batch; with ``shard_mlstm_pixels`` the
+fusion's pixels are sharded over 'model' (``models/rmi.py``).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 
 from ..config import MatchingConfig
 from ..models.rmi import RMI
+from ..parallel.mesh import reduce_gradients, reduce_metrics, set_mesh
 from .losses import l2_regularization_loss, weighted_logistic_loss
 from .optim import AdamState, adam_update
 from .schedules import tf1_polynomial_decay
@@ -95,8 +103,9 @@ def matching_loss_fn(model: RMI, cfg: MatchingConfig,
                                  "sigm": out.sigm}
 
 
-def make_matching_train_step(cfg: MatchingConfig):
-    """Returns ``step(state, batch) -> (state, metrics)``.
+def make_matching_train_step(cfg: MatchingConfig, mesh=None):
+    """Returns ``step(state, batch) -> (state, metrics)``, data-parallel
+    over ``mesh`` when one is given (the module docstring).
 
     ``batch``: tensors on the model's device: image [N, H, W, 3]
     mean-subtracted float32, words [N, T] end-padded, seq_len [N],
@@ -111,8 +120,11 @@ def make_matching_train_step(cfg: MatchingConfig):
         names = list(state.mu)
         for name in names:
             params[name].grad = None
-        cost, aux = matching_loss_fn(state.model, cfg, batch, names)
-        cost.backward()
+        with set_mesh(mesh):
+            cost, aux = matching_loss_fn(state.model, cfg, batch, names)
+            cost.backward()
+        if mesh is not None:
+            reduce_gradients({n: params[n].grad for n in names}, mesh)
         lr = schedule(state.step)
         grads = {n: params[n].grad * BIAS_LR_MULT if n.endswith(".biases")
                  else params[n].grad for n in names}
@@ -122,6 +134,7 @@ def make_matching_train_step(cfg: MatchingConfig):
         metrics = {"cost": cost.detach(),
                    "cls_loss": aux["cls_loss"].detach(),
                    "reg_loss": aux["reg_loss"].detach(), "lr": lr}
-        return state, metrics
+        return state, reduce_metrics(metrics, ("cost", "cls_loss",
+                                               "reg_loss"), mesh)
 
     return step

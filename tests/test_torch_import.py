@@ -11,7 +11,9 @@ the Residual FG variant, and ``python -m sketchyscenecolorization_torch
 --help`` runs.  The offline tools (``dataprep``, ``utils/tf1_converter``,
 ``scripts/torch_real_weight_parity.py``) import and run with both blocked
 too, and ``scripts/orbax_to_torch.py`` converts an orbax snapshot with the
-JAX package blocked (orbax itself needs ``jax``).  Its own copies of the
+JAX package blocked (orbax itself needs ``jax``).  ``parallel/`` and the
+functions the ranks of the multi-process tests run import with both
+blocked, and the ranks they spawn load neither.  Its own copies of the
 JAX package's jax-free modules (``config``, ``text``, ``data``) agree with
 the originals."""
 import dataclasses
@@ -261,6 +263,35 @@ def test_offline_tools_run_without_jax(tmp_path):
     assert saved["step"] == 2
     for name, value in gen.state_dict().items():
         assert torch.equal(saved["generator"][name], value), name
+
+
+RANKS_SCRIPT = textwrap.dedent("""
+    import sys
+    for blocked in ("jax", "flax", "sketchyscenecolorization_tpu"):
+        sys.modules[blocked] = None      # any import of them now raises
+    out = sys.argv[1]
+    sys.path.insert(0, sys.argv[2])
+    import sketchyscenecolorization_torch.parallel.launch as launch
+    import sketchyscenecolorization_torch.parallel.mesh
+    import sketchyscenecolorization_torch.parallel.pixel_shard
+    import torch_parallel_ranks as ranks
+    launch.run_ranks(ranks.no_jax, 2, "file://" + out + "/rendezvous",
+                     args=(out,), threads=1)
+    print("ranks", [ranks.load(out, "no_jax", r) for r in range(2)])
+""")
+
+
+def test_parallel_ranks_run_without_jax(tmp_path):
+    """``parallel/`` and the ranks' functions of the multi-process tests
+    import with ``jax`` and the JAX package blocked, and the spawned ranks
+    (a data-parallel FG step and a pixel-sharded forward) load neither."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", RANKS_SCRIPT, str(tmp_path),
+         os.path.join(ROOT, "tests")], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ranks [[], []]"
 
 
 def test_config_copy_matches_jax():

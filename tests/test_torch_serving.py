@@ -12,7 +12,7 @@ engine.  The tests run on ``clone``s of them.
   same canvas and generator bytes, and ``sky_detect_trace`` against the
   host ``detect_sky`` and JAX's: exact (tolerance 0, measured 0).
 - A mirror of each equivalence test of ``tests/test_pipeline_serving.py``
-  (not the three serving-data-parallel ones, ROADMAP A13), port against
+  but the three serving-data-parallel ones, port against
   port: byte-equal (tolerance 0, measured 0), but for stream against
   sequential commands, which differ by the generator's bucket-size
   reduction order (the JAX session's caveat): within 1 uint8 LSB on under
@@ -27,6 +27,14 @@ engine.  The tests run on ``clone``s of them.
   results byte-equal inside the inner masks and on the drawings.
 - ``match_instances_host`` against ``match_instances``, and the stage
   trace's labels.
+- Serving data parallelism (``tests/test_pipeline_serving.py:646-770``):
+  ``serve_devices_for``'s wiring and fallback; the FG engine with
+  ``serve_devices=[cpu] * 4`` against the single-device engine (the noise
+  stream bit-equal, small buckets byte-equal) and against JAX's engine on
+  its 4-device mesh on JAX's noise (within 1 LSB on under 1% of values;
+  measured, printed); a session whose engine splits over four devices
+  against JAX's DP session and the port's default one, gradient off
+  (records byte-equal, canvases within 1 LSB; measured, printed).
 """
 import dataclasses
 import json
@@ -41,12 +49,15 @@ import scipy.io
 import torch
 from PIL import Image
 
-from sketchyscenecolorization_torch.config import FGGanConfig
+from sketchyscenecolorization_torch.config import FGGanConfig, FrameworkConfig
 from sketchyscenecolorization_torch.models import fg_gan
 from sketchyscenecolorization_torch.pipeline import compositing as comp
 from sketchyscenecolorization_torch.pipeline.engines import (
     FGColorizeEngine, sky_detect_trace)
-from sketchyscenecolorization_torch.pipeline.factory import build_session
+from sketchyscenecolorization_torch.pipeline.factory import (
+    build_session, serve_devices_for)
+from sketchyscenecolorization_torch.pipeline.session import \
+    ColorizationSession as TColorizationSession
 from sketchyscenecolorization_torch.pipeline.io import (AsyncPngWriter,
                                                         write_png)
 from sketchyscenecolorization_torch.utils.bridge import load_jax_tree
@@ -710,3 +721,139 @@ def test_stage_trace_records_the_serving_stages(env, monkeypatch,
     assert all(t1 >= t0 for _, t0, t1 in events)
     session.clear_trace()
     assert session.trace_events == []
+
+
+# ------------------------------------------------- serving data parallelism
+
+def test_serve_devices_for_wiring(monkeypatch):
+    """``factory.serve_devices_for`` (JAX ``serve_mesh_for``): the first N
+    CUDA devices when the host has them; None (one device, JAX's
+    fallback) otherwise, and on the CPU."""
+    def cfg(n):
+        base = FrameworkConfig()
+        return dataclasses.replace(base, pipeline=dataclasses.replace(
+            base.pipeline, serve_gan_data_parallel=n))
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    assert serve_devices_for(cfg(4)) is None          # no card here
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+    assert serve_devices_for(cfg(0)) is None
+    assert serve_devices_for(cfg(1)) is None
+    assert serve_devices_for(cfg(4)) == [torch.device("cuda", i)
+                                         for i in range(4)]
+    assert serve_devices_for(cfg(9)) is None          # more than the host
+    assert serve_devices_for(cfg(4), device="cpu") is None
+
+
+def _dp_engines():
+    """JAX's FG engine on a 4-device 'data' mesh and the port's with
+    ``serve_devices=[cpu] * 4``, from the same weights (the fixture of
+    ``tests/test_pipeline_serving.py:666-716``)."""
+    from sketchyscenecolorization_tpu.config import FGGanConfig as JFGGan
+    from sketchyscenecolorization_tpu.parallel import create_mesh
+    from sketchyscenecolorization_tpu.pipeline.engines import \
+        FGColorizeEngine as JFGEngine
+    from sketchyscenecolorization_tpu.train.fg_gan import build_models
+    kw = dict(image_size=32, vocab_size=12, max_len=6, base_channels=8,
+              num_classes=5, noise_dim=8)
+    jcfg, cfg = JFGGan(**kw), FGGanConfig(**kw)
+    gen, _ = build_models(jcfg)
+    s = cfg.image_size
+    params = gen.init(jax.random.PRNGKey(0),
+                      jnp.zeros((1, s, s, 3), jnp.float32),
+                      jnp.zeros((1, cfg.max_len), jnp.int32),
+                      jnp.zeros((1,), jnp.int32),
+                      jnp.zeros((1, cfg.noise_dim), jnp.float32))["params"]
+    vocab = {"<pad>": 0, "<unk>": 1, "red": 2}
+    mesh = create_mesh(data=4, model=1, devices=jax.devices()[:4])
+    jax_dp = JFGEngine(jcfg, params, vocab, seed=7, serve_mesh=mesh)
+    model = load_jax_tree(fg_gan.build_generator(cfg),
+                          jax.tree.map(np.asarray, params))
+    single = FGColorizeEngine(cfg, model, vocab, seed=7, device="cpu")
+    dp = FGColorizeEngine(cfg, model, vocab, seed=7, device="cpu",
+                          serve_devices=["cpu"] * 4)
+    return jax_dp, single, dp
+
+
+def _lsb(a, b):
+    diff = np.abs(np.asarray(a).astype(int) - np.asarray(b).astype(int))
+    return int(diff.max()), float((diff > 0).mean())
+
+
+def test_serve_dp_engine_matches_single_device_and_jax():
+    jax_dp, single, dp = _dp_engines()
+    assert len(dp._replicas) == 1           # one replica per device
+    rng = np.random.RandomState(0)
+    k, s = 6, single.cfg.image_size         # bucket 8: 2 rows a device
+    sketches = rng.uniform(-1, 1, (k, s, s, 3)).astype(np.float32)
+    ids = [1, 4, 2, 0, 3, 1]
+    toks = rng.randint(0, 12, (k, 6)).astype(np.int32)
+
+    out_1, k1 = single.colorize_rows_dev(sketches, ids, toks)
+    out_n, kn = dp.colorize_rows_dev(sketches, ids, toks)
+    assert k1 == kn == k and out_n.shape[0] == 8
+    assert torch.equal(single._rng.get_state(), dp._rng.get_state())
+    worst, share = _lsb(out_1[:k], out_n[:k])
+    assert worst <= 1 and share < 0.01
+    # buckets that do not divide over the devices run on the first one
+    small_1, _ = single.colorize_rows_dev(sketches[:2], ids[:2], toks[:2])
+    small_n, _ = dp.colorize_rows_dev(sketches[:2], ids[:2], toks[:2])
+    assert torch.equal(small_1, small_n)
+
+    # against JAX's engine on its mesh, on JAX's noise stream
+    dp_jax_noise = dp.fork(7)
+    dp_jax_noise.noise_source = JaxNoise(7, dp.cfg.noise_dim)
+    want, _ = jax_dp.colorize_rows_dev(sketches, ids, toks)
+    got, _ = dp_jax_noise.colorize_rows_dev(sketches, ids, toks)
+    j_worst, j_share = _lsb(got[:k], np.asarray(want)[:k])
+    assert j_worst <= 1 and j_share < 0.01
+    print(f"serving DP engine: vs single {worst} LSB on {share:.2%}, "
+          f"vs JAX {j_worst} LSB on {j_share:.2%}")
+
+
+def test_serve_dp_session_matches_jax_and_default(env):
+    """A session whose FG engine splits each bucket over four devices
+    serves the stream of JAX's DP session (JAX ``test_pipeline_serving.py:
+    719-770``) and of the port's default session, routed, gradient off,
+    on JAX's noise: records byte-equal, canvases within 1 LSB."""
+    from sketchyscenecolorization_tpu.parallel import create_mesh
+    from sketchyscenecolorization_tpu.pipeline.engines import \
+        FGColorizeEngine as JFGEngine
+    from sketchyscenecolorization_tpu.pipeline.session import \
+        ColorizationSession as JColorizationSession
+    tmp, js, ts = env
+    texts = ["the bus is yellow", "the grass is green",
+             "the sky is blue and the ground is green", "the bus is red"]
+    routes = {t: [0, 1] for t in texts if "sky" not in t}   # bucket 4 first
+
+    def dp_cfg(cfg, outputs):
+        return dataclasses.replace(cfg, pipeline=dataclasses.replace(
+            cfg.pipeline, results_base_dir=str(tmp / outputs),
+            serve_gan_data_parallel=4, color_gradient=False))
+
+    mesh = create_mesh(data=4, model=1, devices=jax.devices()[:4])
+    jsess = routed(JColorizationSession(
+        dp_cfg(js.cfg, "dp_jax"), js.matching,
+        JFGEngine(js.fg.cfg, js.fg.g_params, js.fg.vocab, seed=9,
+                  serve_mesh=mesh), js.bg), routes)
+    engine = FGColorizeEngine(ts.fg.cfg, ts.fg.model, ts.fg.vocab, seed=9,
+                              device="cpu", serve_devices=["cpu"] * 4)
+    engine.noise_source = JaxNoise(9, engine.cfg.noise_dim)
+    tsess = routed(TColorizationSession(dp_cfg(ts.cfg, "dp_torch"),
+                                        ts.matching, engine, ts.bg), routes)
+    default = ts.clone(seed=9, results_base_dir=str(tmp / "dp_default"),
+                       color_gradient=False)
+    default.fg.noise_source = JaxNoise(9, engine.cfg.noise_dim)
+    routed(default, routes)
+    paths = {name: sess.colorize_stream(IMAGE_ID, texts) for name, sess in
+             (("dp_jax", jsess), ("dp_torch", tsess),
+              ("dp_default", default))}
+    worst = {}
+    for other in ("dp_jax", "dp_default"):
+        assert _records(tmp, "dp_torch") == _records(tmp, other)
+        assert [os.path.basename(p) for p in paths["dp_torch"]] == \
+            [os.path.basename(p) for p in paths[other]]
+        worst[other] = max(_lsb(_img(a), _img(b))[0] for a, b in
+                           zip(paths["dp_torch"], paths[other]))
+        assert worst[other] <= 1, other
+    print(f"serving DP session: {worst}")

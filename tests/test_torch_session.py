@@ -152,19 +152,36 @@ def test_fg_sequence_matches_jax(sessions):
 
 
 def test_unported_pipeline_options_raise(sessions):
-    """The default ``PipelineConfig`` (device compositing, compact fetch,
-    the device gradient) builds; only serving data parallelism raises,
-    naming ROADMAP A13."""
+    """Every pipeline option of the JAX package builds: the default
+    ``PipelineConfig`` (device compositing, compact fetch, the device
+    gradient), and ``serve_gan_data_parallel=2``, which on a host with
+    fewer than two cards (here the CPU) falls back to one device, as JAX's
+    ``serve_mesh_for`` does, and serves the same records and canvases as
+    the default session (byte-equal)."""
     _, (ts, tdir) = sessions
     cfg = port_config(small_config(tdir))      # the default PipelineConfig
     pl = cfg.pipeline
     assert pl.device_compositing and pl.compact_fetch \
         and pl.device_color_gradient
-    TColorizationSession(cfg, ts.matching, ts.fg, ts.bg)
-    dp = dataclasses.replace(cfg, pipeline=dataclasses.replace(
-        pl, serve_gan_data_parallel=2))
-    with pytest.raises(NotImplementedError, match="A13"):
-        TColorizationSession(dp, ts.matching, ts.fg, ts.bg)
+    outputs = {}
+    for n in (0, 2):
+        out = f"dp_{n}"
+        session = build_session(dataclasses.replace(
+            cfg, pipeline=dataclasses.replace(
+                pl, serve_gan_data_parallel=n,
+                results_base_dir=str(tdir / out))), seed=0, device="cpu")
+        assert session.fg.serve_devices is None
+        session.colorize(IMAGE_ID, "the bus is yellow")
+        # the generator on both instances (random weights may match none)
+        session.colorize_foreground(IMAGE_ID, "the yellow bus", [0, 1],
+                                    "7_forced.png", "7_1.png")
+        session.colorize(IMAGE_ID, "the sky is blue and the ground is green")
+        session.flush()
+        outputs[n] = (_records(tdir, out), _results(tdir, out))
+    assert outputs[2][0] == outputs[0][0]
+    assert sorted(outputs[2][1]) == sorted(outputs[0][1])
+    for name, img in outputs[0][1].items():
+        np.testing.assert_array_equal(outputs[2][1][name], img, err_msg=name)
 
 
 def _outputs_config(cfg, outputs, color_gradient):
