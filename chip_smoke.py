@@ -168,31 +168,34 @@ and prints no result):
      --pretrained_npz`` on the matching export's backbone for 4 steps (the
      snapshot's ResNet bit-equal to the npz, every text leaf moved; step
      walls, B1 and B2 in one profiled step);
- 16. parallelism (A13), ranks spawned with ``parallel/launch.py`` (the
-     ``spawn`` start method; every collective times out after 120 s, and a
-     failed rank fails the script): path ``train_dp_nccl``, world size 1
-     on NCCL, ``train_matching`` at the default full width on a 1x1 mesh
-     for 3 steps, against the single-process steps on the batches it took;
-     then two ranks on the one card over gloo (NCCL refuses two ranks on
-     one device): paths ``train_fg_dp2`` (the default ``FGGanConfig``,
-     batch 2, one row a rank, 3 steps), ``train_bg_dp2`` (768^2, batch 2,
-     2 steps) and ``matching_tp2`` (``shard_mlstm_pixels`` at data=1,
-     model=2: P = 9216 split 4608 a rank; the forward and two steps of the
-     default fusion, one step of each variant), each against its
-     single-process twin on rank 0 on the same global batches, state and
-     draws (the GANs' twin steps each from a copy of the mesh's state,
-     the matching twin free-running; losses rtol 2e-4, then 5e-4; the FG
-     discriminator's first moments after step 1 within the CPU tests'
-     2e-2, the other moments printed beside the card's own spread; ``up``
-     within 1e-5; the gradient of mLSTM.w, which holds W_h, within 1e-4
-     of its largest), the ranks' parameters bit-equal
-     after every step; step walls, the gradient all-reduce's ms a step,
-     each rank's peak memory, B1-B6 launches by N and P; path
+ 16. parallelism (A13), ranks spawned with
+     ``tests/torch_parallel_launch.py`` (the ``spawn`` start method; every
+     collective times out after 120 s, and a failed rank fails the
+     script): path ``train_dp_nccl``, world size 1 on NCCL,
+     ``train_matching`` at the default full width on a 1x1 mesh for 3
+     steps, against the single-process steps on the batches it took; then
+     two ranks on the one card over gloo (NCCL refuses two ranks on one
+     device): paths ``train_fg_dp2`` (the default ``FGGanConfig``, batch 2,
+     one row a rank, 3 steps), ``train_bg_dp2`` (768^2, batch 2, 2 steps)
+     and ``matching_tp2`` (``shard_mlstm_pixels`` at data=1, model=2: P =
+     9216 split 4608 a rank; the forward and two steps of the default
+     fusion, one step of each variant), each against its single-process
+     twin on rank 0 on the same global batches, state and draws (the GANs'
+     twin steps each from a copy of the mesh's state, the matching twin
+     free-running; losses rtol 2e-4, then 5e-4; Adam's first moments
+     after step 1, G's from a twin whose D update is pinned to the
+     mesh's: FG's D per leaf and FG's D and G over the whole model within
+     the CPU tests' 2e-2, the rest printed, each beside the card's own
+     spread; ``up`` within 1e-5; the gradient of mLSTM.w,
+     which holds W_h, within 1e-4 of its largest), the ranks' parameters
+     bit-equal after every step; step walls, the gradient all-reduce's ms
+     a step, each rank's peak memory, B1-B6 launches by N and P; path
      ``serve_dp``: the FG engine at full width with ``serve_devices`` =
      [cuda:0, cuda:0] against the unsharded engine (noise stream
      bit-equal, u8 within 1 LSB) and a session with
      ``serve_gan_data_parallel=2`` on the one card (one device, as JAX
-     falls back) serving a routed FG command;
+     falls back) serving a routed FG command; only the split engine's and
+     the session's launches count;
  17. print the kernels line (six kernels: launches per path, times, the
      f32 and 3xTF32 bounds, device ms by launch kind, HMMA counts),
      the card's name and power limit, and last ``{"ok": true, "device":
@@ -4181,19 +4184,24 @@ PAR_UP_TOL = 1e-5       # pixel-sharded ``up`` against unsharded, relative
 # rounding difference of the gradient.
 PAR_TP_GRAD_REL = 1e-4
 # Adam's first moments after the first step against the single-process
-# twin: each leaf within PAR_GRAD_REL of its largest magnitude (floored at
-# 1e-3 of the model's largest), the CPU tests' tolerance
-# (tests/test_torch_parallel_gan.py).  Held where the update is the step's
-# first, from the same state on both sides: the FG discriminator's.  The FG
-# generator's update follows it: with Adam's b1 = 0 every D element moves
-# by +-lr, so a D gradient at rounding level that changes sign moves its
-# element 2 lr apart, and the G gradients then differ by more (printed,
-# with the count of such elements).  The BG moments are printed beside the
-# card's own spread (two twin steps from one state): cuDNN's f32
-# convolutions are not reproducible run to run, and the random-weight
-# multi_residual stack (ROADMAP C2) amplifies that past the CPU tolerance.
+# twin, at the CPU tests' tolerance (tests/test_torch_parallel_gan.py):
+# per leaf, the largest difference within PAR_GRAD_REL of the leaf's
+# largest magnitude (floored at 1e-3 of the model's largest), and over the
+# whole model, the L2 norm of the difference within PAR_GRAD_REL of the
+# moments' L2 norm.  D's against the twin's step from the same state; G's
+# against the twin's step with its D update pinned to the mesh's updated D
+# (``pinned_discriminator``), so that both G updates run against one D.
+# Each is printed beside the card's own spread (D's: twin against pinned
+# twin; G's: pinned twin against pinned twin).  Held: FG per leaf for D,
+# FG over the whole model for D and G.  Printed only, because a change of
+# the data at rounding level moves them as far on one process (PERF.md,
+# open questions): FG's G per leaf (a 1e-7 relative change of the weights
+# moves dec_stage_0.layer_0.update_gate.weights by 5.8e-2 of its largest,
+# as the DP split does) and every BG moment (1e-7 of the inputs moves D's
+# and G's leaves by ~1e-1: the random multi_residual stack, ROADMAP C2).
 PAR_GRAD_REL = 2e-2
 PAR_HELD_MOMENTS = {"train_fg_dp2": ("d",)}
+PAR_HELD_NORMS = {"train_fg_dp2": ("d", "g")}
 KERNEL_LABELS = {"mlstm_fwd": "B1", "mlstm_bwd": "B2", "mlstm_attn_fwd": "B3",
                  "mlstm_attn_bwd": "B4", "recur_attn_fwd": "B5",
                  "recur_attn_bwd": "B6"}
@@ -4255,6 +4263,30 @@ def _timed_all_reduce(device):
     return times
 
 
+@contextlib.contextmanager
+def pinned_discriminator(twin, target):
+    """While the block runs, the GAN steps' Adam update of ``twin``'s
+    discriminator updates its moments and then sets its parameters to
+    ``target``'s (the mesh's discriminator after its update), so that the
+    twin's G update runs against the mesh's D."""
+    import torch
+    from sketchyscenecolorization_torch.train import bg_gan, fg_gan
+    update, first = fg_gan.adam_update, next(twin.discriminator.parameters())
+    values = dict(target.discriminator.named_parameters())
+
+    def pinned(params, grads, opt, *args):
+        update(params, grads, opt, *args)
+        if next(iter(params.values())) is first:
+            with torch.no_grad():
+                for k, p in params.items():
+                    p.copy_(values[k])
+    fg_gan.adam_update = bg_gan.adam_update = pinned
+    try:
+        yield
+    finally:
+        fg_gan.adam_update = bg_gan.adam_update = update
+
+
 def _ranks_equal(tensors):
     """True on every rank when every rank's ``tensors`` (a dict, the same
     names and shapes on each) hold rank 0's bits: rank 0 broadcasts them,
@@ -4284,6 +4316,15 @@ def _moment_error(got, want):
                 float(w.abs().max()), top) for k, w in want.items())
 
 
+def _moment_norm_error(got, want):
+    """The moments' difference over the whole model: the L2 norm of
+    ``got - want`` over that of ``want``, all leaves together."""
+    diff = sum(float(((got[k] - w).double() ** 2).sum())
+               for k, w in want.items())
+    return (diff / sum(float((w.double() ** 2).sum())
+                       for w in want.values())) ** 0.5
+
+
 def _floats(metrics):
     return {k: float(v) for k, v in metrics.items()}
 
@@ -4299,7 +4340,9 @@ def _dp_path(rank, mesh, device, times, new_state, new_step, batches,
     ``twin_each_step`` from a copy of the mesh's state before each step
     (each step held from the same state), else from a fresh state through
     all the steps first (free-running).  Rank 0 compares after the first
-    step ``moments(state)`` (Adam's first moments, ``_moment_error``) and
+    step ``moments(state)`` (Adam's first moments, ``_moment_error``; G's
+    against the twin's step with its D pinned to the mesh's updated D,
+    ``pinned_discriminator``, run twice for the card's own spread) and
     ``leaves(state)`` (tensors: max-abs difference over the twin's largest
     magnitude) with the twin's, and
     ``forward(state, mesh)`` (the model's output before the steps) with
@@ -4361,14 +4404,8 @@ def _dp_path(rank, mesh, device, times, new_state, new_step, batches,
                 1.0, float(twin["up"].abs().max()))
     for i, batch in enumerate(batches):
         if rank == 0 and twin_each_step:
+            before = copy.deepcopy(state)
             twin_steps(copy.deepcopy(state), [batch])
-            if i == 0 and moments is not None:
-                # the card's own spread: the twin's step once more
-                again = twin_steps(copy.deepcopy(state), [batch], False)
-                rec["moment_spread"] = {
-                    side: _moment_error(m, twin["moments"][side])[0]
-                    for side, m in moments(again).items()}
-                del again
         args = [on_device(b, True) for b in batch]
         n = len(times)
         _sync(device)
@@ -4383,11 +4420,29 @@ def _dp_path(rank, mesh, device, times, new_state, new_step, batches,
                              "metrics": _floats(metrics),
                              "ranks_equal": _ranks_equal(params(state))})
         if i == 0 and rank == 0 and moments is not None:
+            pinned = []
+            for _ in range(2):
+                again = copy.deepcopy(before)
+                with pinned_discriminator(again, state):
+                    twin_steps(again, [batch], False)
+                pinned.append(clone(moments(again)))
+                del again
+            del before
+            got = moments(state)
+            want = {"d": twin["moments"]["d"], "g": pinned[0]["g"]}
             rec["moment_error"] = {
-                side: _moment_error(m, twin["moments"][side])
-                + (sum(int(((v > 0) != (twin["moments"][side][k] > 0)).sum())
-                       for k, v in m.items()),)
-                for side, m in moments(state).items()}
+                side: _moment_error(got[side], w)
+                + (sum(int(((v > 0) != (w[k] > 0)).sum())
+                       for k, v in got[side].items()),)
+                for side, w in want.items()}
+            spread = {"d": pinned[0]["d"], "g": pinned[1]["g"]}
+            rec["moment_spread"] = {side: _moment_error(m, want[side])[0]
+                                    for side, m in spread.items()}
+            rec["moment_norm"] = {
+                side: (_moment_norm_error(got[side], w),
+                       _moment_norm_error(spread[side], w))
+                for side, w in want.items()}
+            rec["g_own_d"] = _moment_error(got["g"], twin["moments"]["g"])[0]
         if i == 0 and rank == 0 and leaves is not None:
             want = twin["leaves"]["p"]
             rec["leaves"] = {
@@ -4606,11 +4661,25 @@ def _report_path(name, by_rank, keys):
             raise AssertionError(f"{name}: first moments of {side}.{leaf} "
                                  f"{err:.2e} off the twin's")
         extra.append(
-            f"first moments of {side}: worst {err:.2e} of its leaf's "
+            f"first moments of {side}"
+            + (" (D pinned to the mesh's)" if side == "g" else "")
+            + f": worst {err:.2e} of its leaf's "
             f"largest at {leaf} (leaf {leaf_max:.2e}, model {top:.2e}; "
             + (f"held, tol {PAR_GRAD_REL}; " if held else "printed; ")
             + f"the card's own spread {first['moment_spread'][side]:.2e}; "
             f"{flips} elements of opposite sign)")
+    for side, (err, spread) in sorted(first.get("moment_norm", {}).items()):
+        held = side in PAR_HELD_NORMS.get(name, ())
+        if held and err > PAR_GRAD_REL:
+            raise AssertionError(f"{name}: first moments of {side} {err:.2e}"
+                                 " off the twin's over the whole model")
+        extra.append(f"first moments of {side} over the whole model (L2) "
+                     f"{err:.2e} " + (f"(held, tol {PAR_GRAD_REL}; "
+                                      if held else "(printed; ")
+                     + f"the card's own spread {spread:.2e})")
+    if "g_own_d" in first:
+        extra.append(f"first moments of g against the twin's own D "
+                     f"{first['g_own_d']:.2e} (printed)")
     if "up_error" in first:
         if first["up_error"] > PAR_UP_TOL:
             raise AssertionError(f"{name}: up {first['up_error']:.2e} off")
@@ -4652,7 +4721,8 @@ def parallel_paths(card, device="cuda", spec=None):
     from sketchyscenecolorization_torch.config import (BGGanConfig,
                                                        FGGanConfig,
                                                        MatchingConfig)
-    from sketchyscenecolorization_torch.parallel.launch import run_ranks
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_parallel_launch import run_ranks
     out = tempfile.mkdtemp(prefix="smoke_parallel_")
     if spec is None:
         spec = {"device": device, "matching": MatchingConfig(),
@@ -4739,18 +4809,26 @@ def serve_dp(build_session, card):
     ids = [1, 4, 2, 0]
     toks = rng.randint(1, cfg.vocab_size, (k, cfg.max_len)).astype(np.int32)
     walls = {"single": [], "split": []}
-    reset_counts()                                         # path starts
+    counts = collections.Counter()
+
+    def counted(fn):
+        """Only the path's own launches count (the split engine's and the
+        session's), not the unsharded engine's it is compared with."""
+        reset_counts()                                     # path starts
+        out = fn()
+        counts.update(read_counts())                       # path ends
+        return out
     for _ in range(4):
         for name, engine in (("split", split), ("single", single)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out, _ = engine.colorize_rows_dev(sketches, ids, toks)
+            if name == "split":
+                got, _ = counted(lambda: engine.colorize_rows_dev(
+                    sketches, ids, toks))
+            else:
+                want, _ = engine.colorize_rows_dev(sketches, ids, toks)
             torch.cuda.synchronize()
             walls[name].append((time.perf_counter() - t0) * 1e3)
-            if name == "split":
-                got = out
-            else:
-                want = out
     if not torch.equal(single._rng.get_state(), split._rng.get_state()):
         raise AssertionError("serve_dp: the noise streams differ")
     diff = (got.int() - want.int()).abs()
@@ -4766,9 +4844,10 @@ def serve_dp(build_session, card):
     if session.fg.serve_devices is not None:
         raise AssertionError("one card: the session should serve on one "
                              "device")
-    result = session.colorize(IMAGE_ID, "the bus is yellow")
+    result = counted(lambda: session.colorize(IMAGE_ID,
+                                              "the bus is yellow"))
     torch.cuda.synchronize()
-    counts = read_counts()                                 # path ends
+    counts = {k: counts[k] for k in kernel_counters()}
     img = np.array(Image.open(result))
     if img.shape != (session_cfg.pipeline.image_size,) * 2 + (3,):
         raise AssertionError(f"serve_dp: {result} has shape {img.shape}")

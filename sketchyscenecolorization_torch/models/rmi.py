@@ -23,7 +23,7 @@ named after its JAX scope (``ResNet``, ``FCN_8s``, ``SegNet``,
 the bf16 compute-dtype scope (``ops/conv.py``) and hands f32 features to
 the fusion, as JAX ``rmi.py:259-274`` does.  With ``shard_mlstm_pixels``
 each fusion's recurrence runs with its pixels sharded over the 'model'
-axis of the ambient mesh (``parallel/pixel_shard.py``; JAX
+axis of the ambient mesh (``ops/mlstm.py:PixelLSTM``; JAX
 ``rmi.py:165-196,227-237``).
 """
 from __future__ import annotations
@@ -42,9 +42,6 @@ from ..ops.norm import l2_normalize
 from ..ops.recur_attn import recur_attn_pixel_lstm
 from ..ops.spatial import generate_spatial_batch
 from ..parallel.mesh import current_mesh
-from ..parallel.pixel_shard import (sharded_attn_weighted_pixel_lstm,
-                                    sharded_masked_pixel_lstm,
-                                    sharded_recur_attn_pixel_lstm)
 from .deeplab import DeepLabV2
 
 
@@ -178,23 +175,19 @@ class RMI(nn.Module):
             # their logit is the bias and they take weight
             fc = self.text_sketchyscene.attn_fc
             attn = torch.softmax((lang @ fc.DW)[..., 0] + fc.biases, dim=-1)
-            if cfg.shard_mlstm_pixels:
-                m_last = sharded_attn_weighted_pixel_lstm(
-                    pixel_term, step_term, w_h, valid, attn, self._mesh())
-            else:
-                m_last = attn_weighted_pixel_lstm(pixel_term, step_term, w_h,
-                                                  valid, attn)
-        elif cfg.shard_mlstm_pixels:
-            m_last = sharded_masked_pixel_lstm(pixel_term, step_term, w_h,
-                                               valid, self._mesh())
+            m_last = attn_weighted_pixel_lstm(pixel_term, step_term, w_h,
+                                              valid, attn, self._mesh())
         else:
-            m_last = masked_pixel_lstm(pixel_term, step_term, w_h, valid)
+            m_last = masked_pixel_lstm(pixel_term, step_term, w_h, valid,
+                                       self._mesh())
         return m_last.reshape(n, h, w, cfg.m_rnn_size)
 
     def _mesh(self):
-        """The ambient mesh whose 'model' axis shards the recurrence's
-        pixels (``shard_mlstm_pixels``; JAX's ``shard_map`` needs
-        ``jax.set_mesh``)."""
+        """With ``shard_mlstm_pixels``, the ambient mesh whose 'model' axis
+        shards the recurrence's pixels (JAX's ``shard_map`` needs
+        ``jax.set_mesh``); else None."""
+        if not self.cfg.shard_mlstm_pixels:
+            return None
         mesh = current_mesh()
         if mesh is None:
             raise ValueError("shard_mlstm_pixels needs a mesh: run the model "
@@ -209,10 +202,7 @@ class RMI(nn.Module):
         text = self.text_sketchyscene
         args = (visual_norm.reshape(n, h * w, v), lang_out, text.h_proj.DW,
                 text.h_proj.biases, text.mLSTM.w, text.mLSTM.b, words != 0)
-        if self.cfg.shard_mlstm_pixels:
-            m_last = sharded_recur_attn_pixel_lstm(*args, self._mesh())
-        else:
-            m_last = recur_attn_pixel_lstm(*args)
+        m_last = recur_attn_pixel_lstm(*args, self._mesh())
         return m_last.reshape(n, h, w, self.cfg.m_rnn_size)
 
     def apply_fused(self, visual_norm: torch.Tensor, words: torch.Tensor,

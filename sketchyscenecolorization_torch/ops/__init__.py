@@ -9,11 +9,10 @@ from .image import (box_downsample, mean_pool_2x2, nn_upsample_2x,
                     resize_bilinear_half_pixel, tf1_resize_bilinear)
 from .spatial import generate_spatial_batch
 from .activations import lrelu, miu_relu, atanh_transform
-from .mlstm import (AttnWeightedPixelLSTM, MaskedPixelLSTM,
-                    attn_weighted_pixel_lstm, masked_pixel_lstm,
+from .mlstm import (PixelLSTM, attn_weighted_pixel_lstm, masked_pixel_lstm,
                     mlstm_attn_bwd_cuda, mlstm_attn_bwd_plain, mlstm_attn_cuda,
                     mlstm_attn_plain, mlstm_bwd_cuda, mlstm_bwd_plain,
                     mlstm_cuda, mlstm_plain)
-from .recur_attn import (RecurAttnPixelLSTM, recur_attn_bwd_cuda,
+from .recur_attn import (recur_attn_bwd_cuda,
                          recur_attn_bwd_plain, recur_attn_cuda,
                          recur_attn_pixel_lstm, recur_attn_plain)

@@ -8,13 +8,13 @@ After the input projection is factored (``models/rmi.py``), one step is
 
 with c and h frozen wherever the per-(batch, step) flag ``valid`` is 0.
 
-Two entry points, both autograd functions:
-- ``masked_pixel_lstm`` (``MaskedPixelLSTM``, the JAX custom VJP
-  ``pallas_mlstm.py:936-970``) returns the final h;
-- ``attn_weighted_pixel_lstm`` (``AttnWeightedPixelLSTM``, JAX
-  ``pallas_mlstm.py:244-276``), the word-attention variant, returns
-  ``acc = sum_t attn[n, t] * h_t`` over the kept steps, and its backward
-  also gives d_attn.
+Two entry points, both through the autograd function ``PixelLSTM``,
+which also shards the pixels over a mesh's 'model' axis:
+- ``masked_pixel_lstm`` (the JAX custom VJP ``pallas_mlstm.py:936-970``)
+  returns the final h;
+- ``attn_weighted_pixel_lstm`` (JAX ``pallas_mlstm.py:244-276``), the
+  word-attention variant, returns ``acc = sum_t attn[n, t] * h_t`` over
+  the kept steps, and its backward also gives d_attn.
 
 A CPU tensor goes through the plain PyTorch versions (``mlstm_plain``,
 ``mlstm_bwd_plain``, ``mlstm_attn_plain``, ``mlstm_attn_bwd_plain``: the
@@ -44,6 +44,7 @@ import threading
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from .lstm import lstm_cell
 
@@ -547,68 +548,112 @@ def mlstm_attn_backward(pixel_term, step_term, w_h, valid, attn, g):
                                g.contiguous())
 
 
-class MaskedPixelLSTM(torch.autograd.Function):
-    """The masked recurrence with its BPTT (JAX custom VJP
-    ``pallas_mlstm.py:936-970``): forward by ``mlstm_plain`` (CPU) or kernel
-    B1 (CUDA), backward by ``mlstm_bwd_plain`` (CPU) or kernel B2 (CUDA).
-    ``valid`` gets no gradient.  With ``save`` false (serving, under
-    ``torch.no_grad``) nothing is kept for the backward."""
+def _gather_pixels(local: torch.Tensor, group) -> torch.Tensor:
+    """The 'model' ranks' pixel slices [N, P/M, ...], concatenated in rank
+    order on every rank."""
+    parts = [torch.empty_like(local)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, local, group=group)
+    return torch.cat(parts, dim=1)
+
+
+class PixelLSTM(torch.autograd.Function):
+    """A pixel recurrence with its BPTT (the JAX custom VJPs
+    ``pallas_mlstm.py:244-276,745-775,936-970``).  ``kernels`` is
+    (forward, backward, positions of the inputs that the backward's
+    gradients belong to, in its order): ``mlstm_forward``/
+    ``mlstm_backward`` (B1/B2), ``mlstm_attn_forward``/
+    ``mlstm_attn_backward`` (B3/B4, whose d_attn autograd carries back
+    through the softmax and ``attn_fc`` that made ``attn``) or
+    ``ops/recur_attn.py``'s (B5/B6); the one input left out, ``valid``,
+    gets no gradient.  With ``save`` false (serving, under
+    ``torch.no_grad``) nothing is kept for the backward.
+
+    With ``group``, a mesh's 'model' process group of M ranks, the pixels
+    are sharded as JAX's ``shard_map`` with P over 'model' does
+    (``sketchyscenecolorization_tpu/models/rmi.py:165-196,227-237``): each
+    rank runs the kernels on its contiguous P/M slice of the first input,
+    with the others whole; the outputs and the per-pixel gradient (d_pixel,
+    d_h0) are all-gathered, and the cotangents of the inputs every rank
+    holds whole (d_step, d_W_h, d_attn, d_lang, the RecurAttn weights),
+    partial sums over the rank's pixels, are summed over 'model' in one
+    all-reduce (JAX's psum).  So everything that leaves the function is the
+    same on every 'model' rank and nothing outside it needs a 'model'
+    reduction.  (A differentiable all-gather, whose backward
+    reduce-scatters, would count the replicated downstream gradient M
+    times.)  P must divide by M."""
 
     @staticmethod
-    def forward(ctx, pixel_term, step_term, w_h, valid, save):
-        args = (pixel_term.contiguous(), step_term.contiguous(),
-                w_h.contiguous(), valid.to(torch.int32).contiguous())
+    def forward(ctx, kernels, group, save, *inputs):
+        fwd, _, differentiable = kernels
+        first = inputs[0]
+        if group is not None:
+            size, p = dist.get_world_size(group), first.shape[1]
+            if p % size:
+                raise ValueError(f"{p} pixels do not divide over "
+                                 f"model={size}")
+            ctx.rows = slice(dist.get_rank(group) * (p // size),
+                             (dist.get_rank(group) + 1) * (p // size))
+            first = first[:, ctx.rows]
+        args = tuple(x.contiguous() if i in differentiable
+                     else x.to(torch.int32).contiguous()
+                     for i, x in enumerate((first,) + inputs[1:]))
+        ctx.kernels, ctx.group, ctx.n_inputs = kernels, group, len(inputs)
         if save:
             ctx.save_for_backward(*args)
-        return mlstm_forward(*args)
+        out = fwd(*args)
+        return out if group is None else _gather_pixels(out, group)
 
     @staticmethod
     def backward(ctx, g):
-        return (*mlstm_backward(*ctx.saved_tensors, g), None, None)
+        _, bwd, differentiable = ctx.kernels
+        group = ctx.group
+        grads = bwd(*ctx.saved_tensors,
+                    g if group is None else g[:, ctx.rows])
+        if group is not None:
+            rest = [x.contiguous() for x in grads[1:]]
+            flat = torch.cat([x.reshape(-1) for x in rest])
+            dist.all_reduce(flat, group=group)
+            grads = [_gather_pixels(grads[0].contiguous(), group)]
+            for x in rest:
+                grads.append(flat[:x.numel()].view_as(x))
+                flat = flat[x.numel():]
+        out = [None] * ctx.n_inputs
+        for i, d in zip(differentiable, grads):
+            out[i] = d
+        return (None, None, None, *out)
+
+
+def pixel_lstm(kernels, mesh, *inputs) -> torch.Tensor:
+    """``PixelLSTM`` of ``kernels`` on ``inputs``, its pixels sharded over
+    ``mesh``'s 'model' axis when a mesh is given."""
+    save = torch.is_grad_enabled() and any(
+        inputs[i].requires_grad for i in kernels[2])
+    group = None if mesh is None else mesh.get_group("model")
+    return PixelLSTM.apply(kernels, group, save, *inputs)
+
+
+MLSTM_KERNELS = (mlstm_forward, mlstm_backward, (0, 1, 2))
+MLSTM_ATTN_KERNELS = (mlstm_attn_forward, mlstm_attn_backward, (0, 1, 2, 4))
 
 
 def masked_pixel_lstm(pixel_term: torch.Tensor, step_term: torch.Tensor,
-                      w_h: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+                      w_h: torch.Tensor, valid: torch.Tensor,
+                      mesh=None) -> torch.Tensor:
     """Final h [N, P, H] of the masked recurrence, differentiable in
     pixel_term, step_term and w_h (JAX ``masked_pixel_lstm``,
-    ``pallas_mlstm.py:937``)."""
-    save = torch.is_grad_enabled() and any(
-        x.requires_grad for x in (pixel_term, step_term, w_h))
-    return MaskedPixelLSTM.apply(pixel_term, step_term, w_h, valid, save)
-
-
-class AttnWeightedPixelLSTM(torch.autograd.Function):
-    """The word-attention recurrence with its BPTT (JAX custom VJP
-    ``pallas_mlstm.py:244-276``): forward by ``mlstm_attn_plain`` (CPU) or
-    kernel B3 (CUDA), backward by ``mlstm_attn_bwd_plain`` (CPU) or kernel
-    B4 (CUDA), which also gives d_attn; autograd carries it back through
-    the softmax and ``attn_fc`` that made ``attn``.  ``valid`` gets no
-    gradient; with ``save`` false nothing is kept for the backward."""
-
-    @staticmethod
-    def forward(ctx, pixel_term, step_term, w_h, valid, attn, save):
-        args = (pixel_term.contiguous(), step_term.contiguous(),
-                w_h.contiguous(), valid.to(torch.int32).contiguous(),
-                attn.contiguous())
-        if save:
-            ctx.save_for_backward(*args)
-        return mlstm_attn_forward(*args)
-
-    @staticmethod
-    def backward(ctx, g):
-        d_pixel, d_step, d_w_h, d_attn = mlstm_attn_backward(
-            *ctx.saved_tensors, g)
-        return d_pixel, d_step, d_w_h, None, d_attn, None
+    ``pallas_mlstm.py:937``); pixels sharded over ``mesh``'s 'model' axis
+    when a mesh is given (``PixelLSTM``)."""
+    return pixel_lstm(MLSTM_KERNELS, mesh, pixel_term, step_term, w_h, valid)
 
 
 def attn_weighted_pixel_lstm(pixel_term: torch.Tensor,
                              step_term: torch.Tensor, w_h: torch.Tensor,
-                             valid: torch.Tensor,
-                             attn: torch.Tensor) -> torch.Tensor:
+                             valid: torch.Tensor, attn: torch.Tensor,
+                             mesh=None) -> torch.Tensor:
     """acc [N, P, H] = sum over kept steps of attn[n, t] * h_t,
     differentiable in pixel_term, step_term, w_h and attn (JAX
-    ``attn_weighted_pixel_lstm``, ``pallas_mlstm.py:245``)."""
-    save = torch.is_grad_enabled() and any(
-        x.requires_grad for x in (pixel_term, step_term, w_h, attn))
-    return AttnWeightedPixelLSTM.apply(pixel_term, step_term, w_h, valid,
-                                       attn, save)
+    ``attn_weighted_pixel_lstm``, ``pallas_mlstm.py:245``); pixels sharded
+    over ``mesh``'s 'model' axis when a mesh is given."""
+    return pixel_lstm(MLSTM_ATTN_KERNELS, mesh, pixel_term, step_term, w_h,
+                      valid, attn)

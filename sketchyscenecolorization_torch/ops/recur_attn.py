@@ -13,8 +13,8 @@ with c and h frozen wherever ``valid`` (``words != 0``) is 0.  ``lang`` is
 the raw word-LSTM output [N, T, w]; the rows of ``Wm`` [w + H, 4H] are
 [attended x; h], in that order.
 
-``recur_attn_pixel_lstm`` is the entry point, an autograd function
-(``RecurAttnPixelLSTM``, the JAX custom VJP ``pallas_mlstm.py:745-775``).
+``recur_attn_pixel_lstm`` is the entry point, through the autograd function
+``ops/mlstm.py:PixelLSTM`` (the JAX custom VJP ``pallas_mlstm.py:745-775``).
 A CPU tensor goes through the plain PyTorch versions ``recur_attn_plain``
 and ``recur_attn_bwd_plain`` (also the kernels' test oracles); a CUDA
 tensor goes through ``recur_attn_cuda`` and ``recur_attn_bwd_cuda``, which
@@ -35,7 +35,7 @@ import torch
 
 from .lstm import lstm_cell
 from .mlstm import (BWD_BK, SMEM_BYTES, check_cuda_tensors, launch,
-                    padded_hidden, rows_product_splits)
+                    padded_hidden, pixel_lstm, rows_product_splits)
 
 # csrc/recur_attn_bwd.cu: the bias sums add the staged rows in this many
 # chunks at most, each chunk at least COL_ROWS rows
@@ -292,33 +292,18 @@ def recur_attn_backward(h0, lang, wp, bp, wm, bm, valid, g):
                                g.contiguous())
 
 
-class RecurAttnPixelLSTM(torch.autograd.Function):
-    """The RecurAttn recurrence with its BPTT (JAX custom VJP
-    ``pallas_mlstm.py:745-775``): forward by ``recur_attn_plain`` (CPU) or
-    kernel B5 (CUDA), backward by ``recur_attn_bwd_plain`` (CPU) or kernel
-    B6 (CUDA).  ``valid`` gets no gradient; with ``save`` false (serving)
-    nothing is kept for the backward."""
-
-    @staticmethod
-    def forward(ctx, h0, lang, wp, bp, wm, bm, valid, save):
-        args = tuple(x.contiguous() for x in (h0, lang, wp, bp, wm, bm)) \
-            + (valid.to(torch.int32).contiguous(),)
-        if save:
-            ctx.save_for_backward(*args)
-        return recur_attn_forward(*args)
-
-    @staticmethod
-    def backward(ctx, g):
-        return (*recur_attn_backward(*ctx.saved_tensors, g), None, None)
+RECUR_ATTN_KERNELS = (recur_attn_forward, recur_attn_backward,
+                      (0, 1, 2, 3, 4, 5))
 
 
 def recur_attn_pixel_lstm(h0: torch.Tensor, lang: torch.Tensor,
                           wp: torch.Tensor, bp: torch.Tensor,
                           wm: torch.Tensor, bm: torch.Tensor,
-                          valid: torch.Tensor) -> torch.Tensor:
+                          valid: torch.Tensor, mesh=None) -> torch.Tensor:
     """Final h [N, P, H] of the RecurAttn recurrence, differentiable in h0,
     lang, wp, bp, wm and bm (JAX ``recur_attn_pixel_lstm``,
-    ``pallas_mlstm.py:746``)."""
-    save = torch.is_grad_enabled() and any(
-        x.requires_grad for x in (h0, lang, wp, bp, wm, bm))
-    return RecurAttnPixelLSTM.apply(h0, lang, wp, bp, wm, bm, valid, save)
+    ``pallas_mlstm.py:746``, whose custom VJP is :745-775); pixels sharded
+    over ``mesh``'s 'model' axis when a mesh is given
+    (``ops/mlstm.py:PixelLSTM``)."""
+    return pixel_lstm(RECUR_ATTN_KERNELS, mesh, h0, lang, wp, bp, wm, bm,
+                      valid)

@@ -23,7 +23,7 @@ matching loss is a sum), and a GAN step differentiates twice and updates
 in several phases.
 
 Axis 'model' shards the pixels of the mLSTM recurrences
-(``parallel/pixel_shard.py``, JAX's ``shard_map`` under ``jax.set_mesh``):
+(``ops/mlstm.py:PixelLSTM``, JAX's ``shard_map`` under ``jax.set_mesh``):
 ``set_mesh`` holds the mesh those functions, the norms and the losses read.
 
 JAX's ``data_sharding`` and ``replicated_sharding`` build ``NamedSharding``
@@ -201,7 +201,9 @@ def data_axis():
 
 class _AllReduceSum(torch.autograd.Function):
     """Sum over a group; the backward sums the incoming gradients over the
-    same group (every rank's loss depends on the sum)."""
+    same group (every rank's loss depends on the sum), through this
+    function again, so that a gradient taken with ``create_graph`` (the
+    GP/DRAGAN penalties) differentiates once more, as JAX's psum does."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -212,9 +214,7 @@ class _AllReduceSum(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return _AllReduceSum.apply(g, ctx.group), None
 
 
 def global_sum(x: torch.Tensor) -> torch.Tensor:

@@ -271,9 +271,8 @@ RANKS_SCRIPT = textwrap.dedent("""
         sys.modules[blocked] = None      # any import of them now raises
     out = sys.argv[1]
     sys.path.insert(0, sys.argv[2])
-    import sketchyscenecolorization_torch.parallel.launch as launch
     import sketchyscenecolorization_torch.parallel.mesh
-    import sketchyscenecolorization_torch.parallel.pixel_shard
+    import torch_parallel_launch as launch
     import torch_parallel_ranks as ranks
     launch.run_ranks(ranks.no_jax, 2, "file://" + out + "/rendezvous",
                      args=(out,), threads=1)

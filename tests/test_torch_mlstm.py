@@ -5,7 +5,7 @@ interpret mode, for end-padded and front-padded masks, pixel counts that
 are not a multiple of the tile and an all-masked row.  Tolerance 1e-5
 absolute on h and on the three gradients (f32, T <= 6 steps; measured
 max-abs difference 1.2e-7 on h, 4.8e-7 on the gradients).
-``MaskedPixelLSTM`` on the CPU is held against autograd through
+``masked_pixel_lstm`` on the CPU is held against autograd through
 ``mlstm_plain``.  The CUDA kernels themselves run only on the card
 (``cuda`` marker): B1 is held against ``mlstm_plain`` to 1e-4, B2 against
 ``mlstm_bwd_plain`` to 1e-4 of each gradient's largest magnitude, and two

@@ -1,5 +1,5 @@
 """Port parity of the word-attention pixel-LSTM (``ops/mlstm.py``:
-``mlstm_attn_plain``, ``mlstm_attn_bwd_plain``, ``AttnWeightedPixelLSTM``)
+``mlstm_attn_plain``, ``mlstm_attn_bwd_plain``, ``attn_weighted_pixel_lstm``)
 against the JAX ``mlstm_attn_scan`` (and ``jax.vjp`` of it) and against the
 Pallas kernels B3/B4 in interpret mode, for end-padded and front-padded
 masks, pixel counts that are not a multiple of the tile and a row with no

@@ -18,6 +18,10 @@ unsharded ones.
   deviation, the clipping on summed gradients), on the step's own
   (seed, step) draws: against the port's single-process step, losses and
   gradients as above.
+- FG GAN with the Pix2Pix discriminator and WGAN-GP: the penalty's
+  double backward runs through the batch-stats BN's global moments, so
+  the all-reduce's own backward must be differentiable; against the
+  port's single-process step, losses and gradients as above.
 - BG GAN: two steps against JAX's unsharded step; raw losses and EMAs
   rtol 2e-4 (5e-4 at step 2), gradients within 1e-2 of each leaf's
   largest, floored at 1e-3 of the model's largest.
@@ -28,7 +32,8 @@ unsharded ones.
   line a step.
 Each test prints the largest differences it measured (on this CPU: FG
 losses 1.2e-6, gradients 5.8e-3, sn 2.4e-7, updates 7.5e-5 lr; DRAGAN
-losses 1.3e-7, gradients 1.3e-3; BG losses 1.1e-6, gradients 3.7e-4)."""
+losses 1.3e-7, gradients 1.3e-3; Pix2Pix WGAN-GP losses 1.0e-7,
+gradients 9.6e-7; BG losses 1.1e-6, gradients 3.7e-4)."""
 import json
 import os
 
@@ -39,13 +44,12 @@ import pytest
 import torch
 
 import torch_parallel_ranks as ranks
+from torch_parallel_launch import join_ranks, start_ranks
 from sketchyscenecolorization_tpu.config import BGGanConfig, FGGanConfig
 from sketchyscenecolorization_tpu.train import bg_gan as j_bg
 from sketchyscenecolorization_tpu.train import fg_gan as j_fg
 from sketchyscenecolorization_torch import config as tconfig
 from sketchyscenecolorization_torch.data import write_record_shard
-from sketchyscenecolorization_torch.parallel.launch import (join_ranks,
-                                                            start_ranks)
 from sketchyscenecolorization_torch.train import (create_bg_gan_state,
                                                   create_fg_gan_state,
                                                   make_fg_gan_train_step)
@@ -94,8 +98,8 @@ def _jax_fg(cfg, tcfg):
     return steps
 
 
-def _port_dragan(tcfg):
-    """The port's single-process DRAGAN steps on the global batches."""
+def _port_fg(tcfg):
+    """The port's single-process FG steps on the global batches."""
     state = create_fg_gan_state(tcfg, seed=ranks.FG_SEED, device="cpu")
     step = make_fg_gan_train_step(tcfg, seed=ranks.FG_SEED)
     steps = []
@@ -153,8 +157,10 @@ def runs(tmp_path_factory):
                     args=(str(out), shard, str(out / "run")), threads=1)]
     want = {
         "fg": _jax_fg(fg_cfg, tconfig.FGGanConfig(**ranks.FG_KW)),
-        "dragan": _port_dragan(tconfig.FGGanConfig(**ranks.FG_KW,
-                                                   **ranks.FG_DRAGAN)),
+        "dragan": _port_fg(tconfig.FGGanConfig(**ranks.FG_KW,
+                                               **ranks.FG_DRAGAN)),
+        "pix2pix_gp": _port_fg(tconfig.FGGanConfig(**ranks.FG_KW,
+                                                   **ranks.FG_PIX2PIX_GP)),
         "bg": _jax_bg(BGGanConfig(**ranks.BG_KW),
                       tconfig.BGGanConfig(**ranks.BG_KW))}
     for context in contexts:
@@ -231,6 +237,21 @@ def test_fg_dragan_data_parallel_steps_match_single_process(runs):
                       "dragan")
     _ranks_bit_equal(got, "dragan")
     print(f"FG DRAGAN DP: loss rel {loss:.2e}, gradients {grad:.2e}")
+
+
+def test_fg_pix2pix_gradient_penalty_data_parallel_matches_single_process(
+        runs):
+    """WGAN-GP differentiates the Pix2Pix discriminator twice, through the
+    batch-stats BN's global moments: the all-reduce's backward must itself
+    be differentiable, as JAX's psum is."""
+    want, got, _, _ = runs
+    loss = _losses(got[0]["pix2pix_gp"], want["pix2pix_gp"],
+                   ("loss_d", "loss_g", "recon_l1"), "pix2pix_gp")
+    grad = _gradients(got[0]["pix2pix_gp"][0], want["pix2pix_gp"][0],
+                      FG_GRAD_REL, "pix2pix_gp")
+    _ranks_bit_equal(got, "pix2pix_gp")
+    print(f"FG Pix2Pix WGAN-GP DP: loss rel {loss:.2e}, gradients "
+          f"{grad:.2e}")
 
 
 def test_bg_data_parallel_steps_match_jax(runs):

@@ -29,11 +29,10 @@ import pytest
 import torch
 
 import torch_parallel_ranks as ranks
+from torch_parallel_launch import join_ranks, start_ranks
 from sketchyscenecolorization_tpu.config import MatchingConfig
 from sketchyscenecolorization_tpu.models import rmi as j_rmi
 from sketchyscenecolorization_tpu.train import matching as j_matching
-from sketchyscenecolorization_torch.parallel.launch import (join_ranks,
-                                                            start_ranks)
 from sketchyscenecolorization_torch.utils.bridge import (export_jax_tree,
                                                          flatten_tree)
 

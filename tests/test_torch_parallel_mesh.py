@@ -24,8 +24,8 @@ import pytest
 import torch
 
 import torch_parallel_ranks as ranks
+from torch_parallel_launch import run_ranks
 from sketchyscenecolorization_torch.ops.norm import batch_stats_norm
-from sketchyscenecolorization_torch.parallel.launch import run_ranks
 
 WORLD = 4
 REL = 1e-5

@@ -1,5 +1,5 @@
 """Port parity of the RecurAttn pixel-LSTM (``ops/recur_attn.py``:
-``recur_attn_plain``, ``recur_attn_bwd_plain``, ``RecurAttnPixelLSTM``)
+``recur_attn_plain``, ``recur_attn_bwd_plain``, ``recur_attn_pixel_lstm``)
 against the JAX ``recur_attn_scan`` (and ``jax.vjp`` of it) and against the
 Pallas kernels B5/B6 in interpret mode, for end-padded, front-padded and
 mid-sequence-padded masks (RecurAttn masks by ``words != 0`` and skips a pad

@@ -1,4 +1,5 @@
-"""Start the ranks of a process mesh on one host.
+"""Start the ranks of a process mesh on one host, for the multi-process
+tests (``tests/test_torch_parallel*.py``) and ``chip_smoke.py``.
 
 ``start_ranks(fn, world_size, init_method)`` starts ``world_size``
 processes with the ``spawn`` start method; each joins the default process

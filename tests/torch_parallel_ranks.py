@@ -1,7 +1,7 @@
 """What the ranks of the multi-process tests run (``tests/test_torch_parallel*.py``).
 
 These functions are started on spawned ranks by
-``sketchyscenecolorization_torch.parallel.launch`` and run the port only:
+``tests/torch_parallel_launch.py`` and run the port only:
 this module imports torch, NumPy and the port, never ``jax`` or the JAX
 package (``tests/test_torch_import.py`` holds it to that).  Each rank
 writes what it computed to ``<out>/<name>_<rank>.pt``; the tests compare
@@ -27,6 +27,9 @@ FUSIONS = {"default": {}, "attn": dict(use_attn=True),
 FG_KW = dict(batch_size=2, image_size=64, vocab_size=10, max_len=4,
              base_channels=4, noise_dim=8, max_iters=100)
 FG_DRAGAN = dict(spectral_norm=False, disc_steps=2)
+# WGAN-GP through the Pix2Pix discriminator's batch-stats BN: the penalty's
+# second-order terms pass through the global moments' all-reduce
+FG_PIX2PIX_GP = dict(block_type="Pix2Pix", spectral_norm=False, wgan=True)
 BG_KW = dict(batch_size=2, image_size=64, vocab_size=8, max_len=4, ngf=4,
              ndf=4, multi_residual=False, max_steps=100)
 MODEL_SEED = 0      # RMI(cfg, torch.Generator().manual_seed(MODEL_SEED))
@@ -339,14 +342,16 @@ def _gan_state(state):
 
 def gan_dp(rank, out, fg_draws):
     """World 2, data=2: two FG steps at the default config on JAX's draws
-    (``fg_draws``, global), two DRAGAN FG steps on the step's own draws,
-    two BG steps; the state after each step."""
+    (``fg_draws``, global), two DRAGAN FG steps and two Pix2Pix WGAN-GP FG
+    steps on the step's own draws, two BG steps; the state after each
+    step."""
     from sketchyscenecolorization_torch.train import (
         create_bg_gan_state, create_fg_gan_state, make_bg_gan_train_step,
         make_fg_gan_train_step)
     mesh = parallel.create_mesh(data=2)
     res = {}
-    for name, kw in (("fg", {}), ("dragan", FG_DRAGAN)):
+    for name, kw in (("fg", {}), ("dragan", FG_DRAGAN),
+                     ("pix2pix_gp", FG_PIX2PIX_GP)):
         cfg = tconfig.FGGanConfig(**FG_KW, **kw)
         state = create_fg_gan_state(cfg, seed=FG_SEED, device="cpu")
         step = make_fg_gan_train_step(cfg, seed=FG_SEED, mesh=mesh)
