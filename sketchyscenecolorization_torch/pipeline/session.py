@@ -83,7 +83,7 @@ from . import compositing as comp
 from .device_compositing import DeviceCompositor
 from .engines import (PIXEL_MU, BGColorizeEngine, FGColorizeEngine,
                       MatchingEngine)
-from .io import AsyncPngWriter, write_png
+from .io import AsyncPngWriter, count_png, write_png
 
 
 def _fixture_signature(paths: Dict[str, str]) -> Tuple[int, ...]:
@@ -331,15 +331,17 @@ class ColorizationSession:
         defensive copy for arrays the session never mutates (compact-fetch
         reconstructions)."""
         level = self.cfg.pipeline.png_compress_level
-        if isinstance(image, _LazyFetch):
-            if self._writer is not None:
-                self._writer.save(path, image, level)
-            else:
-                write_png(path, image.get(), level)
-        elif self._writer is not None:
+        if self._writer is not None:
             self._writer.save(path, image, level, copy=copy)
         else:
-            write_png(path, image, level)
+            self._write_png(path, image.get() if isinstance(image, _LazyFetch)
+                            else image, level)
+
+    def _write_png(self, path: str, image: np.ndarray, level: int) -> None:
+        """A synchronous PNG write, counted on the innermost open span."""
+        bands = write_png(path, image, level)
+        if self.tracer is not None:
+            count_png(self.tracer, bands)
 
     def _load_base(self, state: _ImageState, results_dir: str,
                    last_name: str) -> np.ndarray:
@@ -966,7 +968,7 @@ class ColorizationSession:
             if self._writer is not None:
                 self._writer.save(fg_path, fg_debug, level)
             else:
-                write_png(fg_path, fg_debug(), level)
+                self._write_png(fg_path, fg_debug(), level)
 
         with span(tr, "bg_band_fetch"):
             ramp_band, sky, bottom = (f.get() for f in fetches)

@@ -25,6 +25,12 @@ engine.  The tests run on ``clone``s of them.
   sets equal, canvases within 1 LSB (measured 1), FG results byte-equal
   outside the matched instances' inner masks where their bases agree, BG
   results byte-equal inside the inner masks and on the drawings.
+- The PNG encoder (``pipeline/io.py``) at 1 to 8 row bands, levels 0
+  and 1: PIL decodes the pixels, the joined IDAT inflates to the filtered
+  rows (so the combined Adler-32 holds), every chunk's CRC holds, and one
+  band is the plain ``zlib.compressobj`` stream byte for byte; more
+  callers than CPUs share the pool, and a forked child encodes in bands
+  on a pool of its own.
 - ``match_instances_host`` against ``match_instances``, and the stage
   trace's labels.
 - Serving data parallelism (``tests/test_pipeline_serving.py:646-770``):
@@ -37,9 +43,16 @@ engine.  The tests run on ``clone``s of them.
   (records byte-equal, canvases within 1 LSB; measured, printed).
 """
 import dataclasses
+import io
 import json
 import os
+import signal
+import subprocess
+import sys
+import threading
+import time
 import types
+import zlib
 
 import jax
 import jax.numpy as jnp
@@ -58,6 +71,7 @@ from sketchyscenecolorization_torch.pipeline.factory import (
     build_session, serve_devices_for)
 from sketchyscenecolorization_torch.pipeline.session import \
     ColorizationSession as TColorizationSession
+from sketchyscenecolorization_torch.pipeline import io as png_io
 from sketchyscenecolorization_torch.pipeline.io import (AsyncPngWriter,
                                                         write_png)
 from sketchyscenecolorization_torch.utils.bridge import load_jax_tree
@@ -119,12 +133,106 @@ def env(tmp_path_factory):
 
 # ------------------------------------------------------------------ PNG IO
 
+def _chunks(data):
+    """(tag, payload) of every chunk of PNG bytes, each CRC checked."""
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    out, p = [], 8
+    while p < len(data):
+        n = int.from_bytes(data[p:p + 4], "big")
+        tag, payload = data[p + 4:p + 8], data[p + 8:p + 8 + n]
+        assert int.from_bytes(data[p + 8 + n:p + 12 + n], "big") == \
+            zlib.crc32(tag + payload), tag
+        out.append((tag, payload))
+        p += 12 + n
+    assert out[-1] == (b"IEND", b"")
+    return out
+
+
+@pytest.mark.parametrize("bands", [1, 2, 3, 8])
 @pytest.mark.parametrize("level", [0, 1])
-def test_write_png_roundtrip(tmp_path, level):
-    img = np.random.RandomState(0).randint(0, 256, (37, 53, 3), np.uint8)
+@pytest.mark.parametrize("shape", [(37, 53), (1, 1), (5, 767), (767, 768),
+                                   (768, 768)])
+def test_write_png_roundtrip(tmp_path, monkeypatch, shape, level, bands):
+    """Any band count decodes to the same pixels and filtered rows (the
+    joined IDAT inflates with its combined Adler-32); one band is the
+    plain ``compressobj`` stream byte for byte."""
+    monkeypatch.setattr(png_io, "_pool_size", lambda: bands)
+    h, w = shape
+    rng = np.random.RandomState(h * w + level)
+    img = rng.randint(0, 256, (h, w, 3), np.uint8)
+    img[: h // 3] = img[0, 0]                    # a flat run, as a sky
     p = str(tmp_path / "x.png")
-    write_png(p, img, level)
+    used = write_png(p, img, level)
+    assert used == max(1, min(bands, h // 64))
     np.testing.assert_array_equal(_img(p), img)
+    with open(p, "rb") as f:
+        chunks = _chunks(f.read())
+    idat = b"".join(d for tag, d in chunks if tag == b"IDAT")
+    rows = img.reshape(h, w * 3)
+    if level:
+        rows = rows.copy()
+        rows[:, 3:] = rows[:, 3:] - img.reshape(h, w * 3)[:, :-3]
+    raw = np.concatenate([np.full((h, 1), level, np.uint8), rows], 1)
+    assert zlib.decompress(idat) == raw.tobytes()
+    if used == 1:
+        c = zlib.compressobj(level, zlib.DEFLATED, 15, 8, zlib.Z_RLE)
+        assert idat == c.compress(raw.tobytes()) + c.flush()
+
+
+def test_a_fork_child_encodes_in_bands(monkeypatch):
+    """The pool's threads stay in the parent; a forked child makes its own."""
+    monkeypatch.setattr(png_io, "_pool_size", lambda: 4)
+    img = np.random.RandomState(1).randint(0, 256, (256, 96, 3), np.uint8)
+    want, used = png_io.png_bytes(img)          # makes the parent's pool
+    assert used == 4
+    pid = os.fork()
+    if pid == 0:                                # the child: report, exit
+        code = 1
+        try:
+            code = 0 if png_io.png_bytes(img) == (want, 4) else 2
+        finally:
+            os._exit(code)
+    deadline = time.monotonic() + 60
+    while True:
+        done, status = os.waitpid(pid, os.WNOHANG)
+        if done or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    if not done:
+        os.kill(pid, signal.SIGKILL)
+        os.waitpid(pid, 0)
+    assert done and os.waitstatus_to_exitcode(status) == 0
+
+
+def test_concurrent_callers_share_the_pool(monkeypatch):
+    """More callers than CPUs encode at once on the one pool, with the
+    interpreter switching threads as often as it can: each gets its own
+    image back."""
+    monkeypatch.setattr(png_io, "_pool_size", lambda: 8)
+    imgs = [np.random.RandomState(i).randint(0, 256, (512, 40, 3), np.uint8)
+            for i in range(2 * (os.cpu_count() or 1))]
+    got = [None] * len(imgs)
+
+    def encode(i):
+        for _ in range(3):
+            data, used = png_io.png_bytes(imgs[i])
+            got[i] = (used, np.array(Image.open(io.BytesIO(data))))
+
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=encode, args=(i,))
+                   for i in range(len(imgs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    for img, (used, back) in zip(imgs, got):
+        assert used == 8
+        np.testing.assert_array_equal(back, img)
 
 
 def test_async_writer_flush_and_error_surface(tmp_path):
@@ -138,6 +246,52 @@ def test_async_writer_flush_and_error_surface(tmp_path):
     with pytest.raises(OSError):
         w.flush()
     w.close()
+
+
+_EXIT_WITHOUT_FLUSH = """
+import dataclasses, sys, time, types
+import numpy as np
+from sketchyscenecolorization_torch.config import FrameworkConfig
+from sketchyscenecolorization_torch.pipeline import io as png_io
+from sketchyscenecolorization_torch.pipeline.session import \\
+    ColorizationSession
+
+png_io._pool_size = lambda: 4
+cfg = FrameworkConfig()
+cfg = dataclasses.replace(cfg, pipeline=dataclasses.replace(
+    cfg.pipeline, async_png_writes=True, color_gradient=False))
+s = ColorizationSession(cfg, types.SimpleNamespace(device="cpu"), None, None)
+png_io.png_bytes(np.zeros((768, 768, 3), np.uint8))    # the band pool runs
+
+
+def later(i):
+    # each job starts after the interpreter has begun to exit
+    def image():
+        time.sleep(0.3)
+        return np.random.RandomState(i).randint(0, 256, (768, 768, 3),
+                                                np.uint8)
+    return image
+
+
+for i in range(6):
+    s._save_result(f"{sys.argv[1]}/{i}.png", later(i))
+"""
+
+
+def test_queued_writes_survive_exit_without_flush(tmp_path):
+    """A process that exits with write-behind PNGs still queued writes
+    them all, banded, from the session's finalizer -- which runs after the
+    interpreter has closed its thread pools to new work."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run(
+        [sys.executable, "-c", _EXIT_WITHOUT_FLUSH, str(tmp_path)],
+        env={**os.environ, "PYTHONPATH": root}, cwd=str(tmp_path),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and "Traceback" not in r.stderr, r.stderr
+    for i in range(6):
+        want = np.random.RandomState(i).randint(0, 256, (768, 768, 3),
+                                                np.uint8)
+        np.testing.assert_array_equal(_img(str(tmp_path / f"{i}.png")), want)
 
 
 # -------------------------------------------------------------- FG engine

@@ -9,6 +9,9 @@ tiny fixture of ``tests/test_pipeline.py``.
 - The generator's ``gan_dispatch`` spans count their rows and the padded
   bucket rows; a slowed ``score_instances`` shows inside the stream's
   ``match`` span.
+- Each PNG write counts ``png_writes`` and ``png_banded`` (deflated in
+  row bands) on the span that waits for it: ``save+records``,
+  ``fg_debug``, ``bg_save``, or a write-behind job's ``png_encode``.
 - A train step records ``step``, ``forward``, ``backward`` and ``adam``.
 - Off, nothing is recorded; on and off give byte-identical results,
   records and updated parameters.
@@ -26,6 +29,7 @@ import torch
 from sketchyscenecolorization_torch import config as tconfig
 from sketchyscenecolorization_torch.models.rmi import RMI
 from sketchyscenecolorization_torch.pipeline import compositing as comp
+from sketchyscenecolorization_torch.pipeline import io as png_io
 from sketchyscenecolorization_torch.pipeline.factory import build_session
 from sketchyscenecolorization_torch.train import (create_matching_state,
                                                   make_matching_train_step)
@@ -200,6 +204,35 @@ def test_a_slow_scoring_shows_inside_the_queues_match(base, monkeypatch):
     assert children == {"backbone_dispatch", "fuse_dispatch", "match_fetch"}
     later = [e for e in events if e[0] == "match" and e is not first]
     assert [e.counts["scored"] for e in later] == [0]    # from the cache
+
+
+@pytest.mark.parametrize("grad", [True, False])
+@pytest.mark.parametrize("bands", [1, 2])
+def test_each_png_write_counts_on_the_span_that_waits_for_it(
+        base, monkeypatch, bands, grad):
+    """A synchronous write counts ``png_writes`` and ``png_banded`` on
+    ``save+records``, ``fg_debug`` or ``bg_save`` and opens no ``png_*``
+    span of its own; a write-behind one counts on its ``png_encode``."""
+    if grad:
+        monkeypatch.setattr(comp, "_LUT_MIN_PIXELS", 1)
+    monkeypatch.setattr(png_io, "_pool_size", lambda: bands)
+    monkeypatch.setattr(png_io, "_BAND_ROWS", SIZE // 4)
+    want = {"png_writes": 1, "png_banded": int(bands > 1)}
+    session = session_of(base, f"png_counts_{bands}_{grad}")
+    session.colorize(IMAGE_ID, "the bus is yellow")
+    session.colorize(IMAGE_ID, BG_TEXT)
+    events = session.trace_events
+    counted = [(e[0], e.counts) for e in events if "png_writes" in e.counts]
+    assert sorted(counted) == sorted([("save+records", want),
+                                      ("fg_debug", want), ("bg_save", want)])
+    assert not [e[0] for e in events if e[0].startswith("png_")]
+    behind = session_of(base, f"png_counts_behind_{bands}_{grad}",
+                        async_png_writes=True)
+    behind.colorize(IMAGE_ID, BG_TEXT)
+    behind.flush()
+    counted = [(e[0], e.counts) for e in behind.trace_events
+               if "png_writes" in e.counts]
+    assert counted == [("png_encode", want)] * 2
 
 
 def _result_files(tmp, name):
