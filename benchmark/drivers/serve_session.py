@@ -34,6 +34,7 @@ from .. import reference, scenes as scn, serve_check, trace as tr, work
 from ..device import host_counters, host_delta, on_cuda, release, sync
 from ..harness import BENCH_DIR, load_json
 from ..record import Run
+from ..reference import ops, text as rtext
 from ..reference.init import load_into
 from ..reference.text import is_fg
 
@@ -336,3 +337,79 @@ def run(cell, config, traffic, seed, seconds, trace, started, device
         shutil.rmtree(root, ignore_errors=True)
     return rec
 
+
+# the control (``benchmark/control.py``): the reference at ``precision`` in
+# the program's place, on the visits the output check replays
+
+def _serve_entries(plan, visit, noise) -> List[dict]:
+    out = []
+    k = plan.pool[visit.pool].k
+    for command in visit.commands:
+        if command[0] == "withdraw":
+            out.append({"kind": "withdraw"})
+            continue
+        texts = list(command[1]) if command[0] == "stream" else [command[1]]
+        n_fg = sum(rtext.is_fg(t) for t in texts)
+        out.append({"kind": command[0], "texts": texts, "paths": [],
+                    "noise": noise(k * n_fg) if n_fg else None})
+    return out
+
+
+def _outputs(ref, scene, entries, pl, precision) -> List[dict]:
+    """What the reference at ``precision`` puts where the program's
+    outputs go: logits, matched instances, generator rows."""
+    got = []
+    visual = None
+    bg_text = ""
+    k = len(scene.masks)
+    for e in entries:
+        if e["kind"] == "withdraw":
+            got.append({})
+            continue
+        g = {"up": [], "fg": []}
+        with ops.precision(precision):
+            for j, text in enumerate(t for t in e["texts"] if rtext.is_fg(t)):
+                visual = ref.visual(scene.sketch) if visual is None else visual
+                g["up"].append(ref.logits(visual, text))
+                g["fg"].append(ref.fg_rows(scene, list(range(k)), text,
+                                           e["noise"][j * k:(j + 1) * k]))
+            for text in e["texts"]:
+                if not rtext.is_fg(text):
+                    bg_text = rtext.merge_bg_text(
+                        text, bg_text or rtext.DEFAULT_BG_TEXT)
+                    g["bg"] = ref.bg_rgb(scene.sketch, scene.inner, bg_text)
+        g["up"] = np.stack(g["up"]) if g["up"] else None
+        g["fg"] = np.concatenate(g["fg"]) if g["fg"] else None
+        g = {key: v for key, v in g.items() if v is not None}
+        if e["kind"] == "color" and "up" in g:
+            g["matched"] = list(range(k))
+        g["noise"] = e["noise"]
+        got.append(g)
+    return got
+
+
+def control(cell: dict, config: dict, traffic: dict, seed: int,
+            device="cuda", precision="tf32") -> Dict[str, float]:
+    fw = config["framework"]
+    pl = fw["pipeline"]
+    gen = importlib.import_module(f"benchmark.traffic.{traffic['kind']}")
+    plan = gen.make_plan(traffic, seed)
+    noise = NoiseStream(seed, fw["fg_gan"]["noise_dim"])
+    ref = serve_check.Reference(fw, seed, device)
+    results = []
+    for v in serve_check.sample_visits(plan, seed, SAMPLE_VISITS,
+                                       len(plan.pool)):
+        visit = plan.visits[v]
+        sp = plan.pool[visit.pool]
+        rng = np.random.default_rng([seed, 1000 + visit.pool])
+        scene = scn.draw_scene(rng, pl["image_size"],
+                               [sp.class_id] * sp.k, sp.sides)
+        entries = _serve_entries(plan, visit, noise)
+        program = _outputs(ref, scene, entries, pl, precision)
+        results.append(serve_check.replay_visit(ref, scene, entries, pl,
+                                                program=program))
+    kinds = {"fg" if rtext.is_fg(t) else "bg"
+             for v in plan.visits for c in v.commands for t in texts_of(c)}
+    limits = load_json("limits", f"{cell['name']}.json")
+    return {c["name"]: c["value"]
+            for c in serve_check.checks(results, 0, limits, kinds)}

@@ -14,6 +14,7 @@ import gc
 import importlib
 import itertools
 import time
+from typing import Dict
 
 import numpy as np
 import torch
@@ -145,3 +146,18 @@ def run(cell, config, traffic, seed, seconds, trace, started, device) -> Run:
     rec.checks = train_check.checks(prog, want, limits)
     rec.correct = train_check.passed(rec.checks)
     return rec
+
+
+def control(cell, config, traffic, seed, device="cuda", precision="tf32"
+            ) -> Dict[str, float]:
+    """The control (``benchmark/control.py``): the reference's first
+    steps at ``precision`` in the program's place."""
+    m = config["framework"]["matching"]
+    gen = importlib.import_module(f"benchmark.traffic.{traffic['kind']}")
+    batches = make_batches(gen.make_plan(traffic, seed)[:CHECKED_STEPS],
+                           m, seed)
+    want = train_check.reference_steps(m, batches, seed, device)
+    got = train_check.reference_steps(m, batches, seed, device, precision)
+    limits = load_json("limits", f"{cell['name']}.json")
+    return {c["name"]: c["value"]
+            for c in train_check.checks(got, want, limits)}

@@ -1,0 +1,7 @@
+"""commands_per_s.fg_interactive: ``commands_per_s``, read by its own reader
+(``metrics/commands_per_s.py``), in ``fg_interactive``, where it moves
+``command_p95_ms``: that cell's rate spreads past the widest bound
+allowed and is no end-to-end metric there (PERF.md, section 2)."""
+from benchmark.harness import metric_reader
+
+read = metric_reader("commands_per_s")

@@ -1,0 +1,7 @@
+"""fg_bucket_fill.fg_interactive: ``fg_bucket_fill``, read by its own reader
+(``metrics/fg_bucket_fill.py``), in ``fg_interactive``, where it moves
+``command_p95_ms``: that cell's rate spreads past the widest bound
+allowed and is no end-to-end metric there (PERF.md, section 2)."""
+from benchmark.harness import metric_reader
+
+read = metric_reader("fg_bucket_fill")

@@ -51,7 +51,10 @@ def recurrence_flops(p: int, hid: int, kept: int) -> int:
     return 2 * p * hid * 4 * hid * max(kept - 1, 0)
 
 
-def _count(fn) -> float:
+def count_flops(fn) -> float:
+    """FLOPs of ``fn()`` (a reference model's call, as a rule on the meta
+    device), its recurrences counted as their needed products; a
+    configuration's own work module counts its parts with it."""
     from torch.utils.flop_counter import FlopCounterMode
     from .reference import ops
     with ops.counting(), FlopCounterMode(display=False) as fc:
@@ -73,22 +76,22 @@ def model_flops(kind: str, sizes_json: str, part: str) -> float:
     with torch.no_grad():
         if part == "backbone":
             img = torch.empty(1, sizes["H"], sizes["W"], 3, device=meta)
-            return _count(lambda: model.visual(img))
+            return count_flops(lambda: model.visual(img))
         if part == "fusion":
             vis = torch.empty(1, sizes["vf_h"], sizes["vf_w"],
                               sizes["v_emb_dim"], device=meta)
             t = sizes["max_len"]
             words = torch.zeros(1, t, dtype=torch.long, device=meta)
             n = torch.full((1,), t, dtype=torch.long, device=meta)
-            return _count(lambda: model.fuse(vis, words, n))
+            return count_flops(lambda: model.fuse(vis, words, n))
         s = sizes["image_size"]
         if part == "row":
-            return _count(lambda: model(
+            return count_flops(lambda: model(
                 torch.empty(1, s, s, 3, device=meta),
                 torch.zeros(1, sizes["max_len"], dtype=torch.long, device=meta),
                 torch.zeros(1, dtype=torch.long, device=meta),
                 torch.empty(1, sizes["noise_dim"], device=meta)))
-        return _count(lambda: model(
+        return count_flops(lambda: model(
             torch.empty(1, s, s, 3, device=meta),
             torch.zeros(1, sizes["max_len"], dtype=torch.long, device=meta)))
 
