@@ -55,6 +55,7 @@ from ..models.gan_layers import commit_sn
 from ..models.inception_v4 import InceptionV4, perceptual_loss
 from ..parallel.mesh import (reduce_gradients, reduce_metrics, set_mesh,
                              shard_batch)
+from ..utils.tracing import command, span
 from .losses import (acgan_focal_loss, dragan_losses, fc_weight_decay_loss,
                      smooth_l1, wgan_gp_losses, wgan_sn_losses)
 from .optim import (AdamState, adam_update, clip_by_global_norm,
@@ -135,23 +136,29 @@ def fg_gan_draws(cfg: FGGanConfig, seed: int, step: int,
 
 
 def _optimize(params, grads, opt: AdamState, base_lr: float, per_step: int,
-              max_iters: int, clip, mesh) -> None:
+              max_iters: int, clip, mesh, trace=None) -> None:
     if mesh is not None:
         reduce_gradients(grads, mesh)
-    if clip is not None:
-        grads = clip_by_tensor_norm(clip_by_global_norm(grads, clip[0]),
-                                    clip[1])
-    lr = float(np.float32(base_lr) * np.float32(
-        fg_gan_lr_decay(opt.count // per_step, max_iters)))
-    adam_update(params, grads, opt, lr, ADAM_B1, ADAM_B2, ADAM_EPS)
+    with span(trace, "adam"):
+        if clip is not None:
+            grads = clip_by_tensor_norm(clip_by_global_norm(grads, clip[0]),
+                                        clip[1])
+        lr = float(np.float32(base_lr) * np.float32(
+            fg_gan_lr_decay(opt.count // per_step, max_iters)))
+        adam_update(params, grads, opt, lr, ADAM_B1, ADAM_B2, ADAM_EPS)
 
 
 def make_fg_gan_train_step(cfg: FGGanConfig, seed: int = 0,
                            perceptual: Optional[InceptionV4] = None,
-                           mesh=None):
+                           mesh=None, trace=None):
     """Returns ``step(state, batch_d, batch_g, draws=None) -> (state,
     metrics)``, data-parallel over ``mesh`` when one is given (the module
-    docstring).
+    docstring), traced into ``trace`` (a ``utils.tracing.Tracer``) when
+    one is given: a root ``step`` (``req`` the state's step, counter
+    ``d_updates``) over ``draws``, one ``d_update`` per D update (over
+    ``d_forward``, ``d_backward``, ``adam``) and one ``g_update`` (over
+    ``g_forward``, ``g_backward``, ``adam``).  Spans time the host; none
+    waits for the device.
 
     ``perceptual`` (an ``InceptionV4`` through at least ``Mixed_5b``, on
     the models' device) adds the perceptual term when
@@ -226,33 +233,48 @@ def make_fg_gan_train_step(cfg: FGGanConfig, seed: int = 0,
 
     def step(state: FGGanTrainState, batch_d, batch_g,
              draws: Optional[Dict] = None):
-        gen, disc = state.generator, state.discriminator
-        if draws is None:
-            draws = fg_gan_draws(cfg, seed, state.step,
-                                 next(gen.parameters()).device)
-        if mesh is not None:
-            draws = {"d": [shard_batch(d, mesh) for d in draws["d"]],
-                     "g": shard_batch(draws["g"], mesh)}
-        d_params = dict(disc.named_parameters())
-        with set_mesh(mesh):
-            for k in range(n_d):
-                loss_d = d_loss_fn(gen, disc, batch_d, draws["d"][k])
-                _optimize(d_params, grads_of(loss_d, d_params), state.d_opt,
-                          cfg.lr_d, n_d, max_iters,
-                          None if cfg.spectral_norm else D_CLIP, mesh)
+        with command(trace, "step", req=state.step) as root:
+            gen, disc = state.generator, state.discriminator
+            if draws is None:
+                with span(trace, "draws"):
+                    draws = fg_gan_draws(cfg, seed, state.step,
+                                         next(gen.parameters()).device)
+            if mesh is not None:
+                draws = {"d": [shard_batch(d, mesh) for d in draws["d"]],
+                         "g": shard_batch(draws["g"], mesh)}
+            d_params = dict(disc.named_parameters())
+            with set_mesh(mesh):
+                for k in range(n_d):
+                    with span(trace, "d_update"):
+                        with span(trace, "d_forward"):
+                            loss_d = d_loss_fn(gen, disc, batch_d,
+                                               draws["d"][k])
+                        with span(trace, "d_backward"):
+                            grads = grads_of(loss_d, d_params)
+                        _optimize(d_params, grads, state.d_opt, cfg.lr_d,
+                                  n_d, max_iters,
+                                  None if cfg.spectral_norm else D_CLIP,
+                                  mesh, trace)
+                    root.count("d_updates")
 
-            g_params = dict(gen.named_parameters())
-            loss_g, recon = g_loss_fn(gen, disc, batch_g, draws["g"])
-            _optimize(g_params, grads_of(loss_g, g_params), state.g_opt,
-                      cfg.lr_g, 1, max_iters,
-                      None if cfg.spectral_norm else G_CLIP, mesh)
-        state.step += 1
-        metrics = reduce_metrics(
-            {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
-             "recon_l1": recon.detach()}, ("loss_d", "loss_g", "recon_l1"),
-            mesh)
-        metrics["nan"] = torch.isnan(metrics["loss_d"]) | torch.isnan(
-            metrics["loss_g"])
-        return state, metrics
+                g_params = dict(gen.named_parameters())
+                with span(trace, "g_update"):
+                    with span(trace, "g_forward"):
+                        loss_g, recon = g_loss_fn(gen, disc, batch_g,
+                                                  draws["g"])
+                    with span(trace, "g_backward"):
+                        grads = grads_of(loss_g, g_params)
+                    _optimize(g_params, grads, state.g_opt, cfg.lr_g, 1,
+                              max_iters,
+                              None if cfg.spectral_norm else G_CLIP,
+                              mesh, trace)
+            state.step += 1
+            metrics = reduce_metrics(
+                {"loss_d": loss_d.detach(), "loss_g": loss_g.detach(),
+                 "recon_l1": recon.detach()},
+                ("loss_d", "loss_g", "recon_l1"), mesh)
+            metrics["nan"] = torch.isnan(metrics["loss_d"]) | torch.isnan(
+                metrics["loss_g"])
+            return state, metrics
 
     return step
